@@ -1,4 +1,5 @@
-"""Core — parallel combining + the batched priority queue, on PyTorch."""
+"""Core — parallel combining, the batched priority queue, the dynamic
+graph and the union-find, on PyTorch."""
 from .combining import ParallelCombiner, PublicationRecord, Request, Status
 from .flat_combining import flat_combining
 from .locks import LockDS, RWLockDS
@@ -21,8 +22,28 @@ from .pc_pq import (
     AsyncRoundsPQ,
     fc_priority_queue,
     pc_adaptive_priority_queue,
+    pc_megapass_priority_queue,
     pc_priority_queue,
     pc_sharded_priority_queue,
+)
+from .dynamic_graph import DynamicGraph
+from .device_graph import AsyncUpdateResult, DeviceGraph, GraphState
+from .read_opt import (
+    AdaptiveReadWrite,
+    BatchedReadOptimized,
+    MegapassCombiner,
+    adaptive_read_engine,
+    batched_read_optimized,
+    pc_adaptive_graph,
+    read_optimized_combining,
+)
+from .seq_union_find import SequentialUnionFind
+from .batched_union_find import BatchedUnionFind, UFState
+from .pc_union_find import (
+    fc_union_find,
+    pc_adaptive_union_find,
+    pc_batched_union_find,
+    pc_union_find,
 )
 from . import substrate
 
@@ -34,6 +55,14 @@ __all__ = [
     "apply_batch_reference", "check_heap_property", "heap_init",
     "ShardedBatchedPQ", "ShardedHeapState", "sharded_apply_batch",
     "AsyncRoundsPQ", "fc_priority_queue", "pc_adaptive_priority_queue",
-    "pc_priority_queue", "pc_sharded_priority_queue",
+    "pc_megapass_priority_queue", "pc_priority_queue",
+    "pc_sharded_priority_queue",
+    "DynamicGraph", "AsyncUpdateResult", "DeviceGraph", "GraphState",
+    "AdaptiveReadWrite", "BatchedReadOptimized", "MegapassCombiner",
+    "adaptive_read_engine", "batched_read_optimized", "pc_adaptive_graph",
+    "read_optimized_combining",
+    "SequentialUnionFind", "BatchedUnionFind", "UFState",
+    "fc_union_find", "pc_adaptive_union_find", "pc_batched_union_find",
+    "pc_union_find",
     "substrate",
 ]

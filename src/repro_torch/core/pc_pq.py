@@ -524,6 +524,26 @@ def pc_sharded_priority_queue(capacity: int, c_max: int,
                          device=device), **kw)
 
 
+def pc_megapass_priority_queue(capacity: int, c_max: int,
+                               n_shards: int = 4, values=None,
+                               donate: bool = True, rounds_cap: int = 8,
+                               use_megapass: bool = True, device=None):
+    """Async megapass PQ engine (DESIGN.md §17): a
+    :class:`~repro_torch.core.read_opt.MegapassCombiner` command queue over
+    the K-sharded heap — insert/extract_min update rounds interleaved with
+    peek_min read rounds, up to ``rounds_cap`` rounds per
+    ``mixed_rounds`` dispatch.  The port's ``ShardedBatchedPQ`` has no
+    fused megapass yet (``supports_megapass = False``: one pass per round,
+    the base fallback), so ``use_megapass`` changes only the dispatch
+    counters.  ``device=None`` means the card."""
+    from .read_opt import MegapassCombiner
+
+    return MegapassCombiner(
+        ShardedBatchedPQ(capacity, c_max=c_max, n_shards=n_shards,
+                         values=values, donate=donate, device=device),
+        rounds_cap=rounds_cap, use_megapass=use_megapass)
+
+
 def fc_priority_queue(**kw) -> ParallelCombiner:
     """Flat-combining binary heap (the paper's FC Binary baseline)."""
     from .flat_combining import flat_combining

@@ -70,6 +70,11 @@ class BatchedStructure:
     # and whose fused passes have a shard_map twin.  The conformance
     # kit's placement-parity stage runs exactly on these.
     supports_placement: bool = False
+    # True on structures whose update batch answers every op against the
+    # batch-START state (the union-find's pre-batch snapshot rule): such a
+    # batch cannot absorb earlier ops without changing their answers, so
+    # the adaptive tier replays host-served ops in a batch of their own.
+    batch_snapshot: bool = False
 
     # -- required ------------------------------------------------------------
     def update_batch_async(self, methods: Sequence[str],
@@ -228,6 +233,8 @@ _REGISTRY: Dict[str, StructureSpec] = {}
 # structures themselves)
 _BUILTIN_MODULES = (
     "repro_torch.core.sharded_pq",
+    "repro_torch.core.device_graph",
+    "repro_torch.core.batched_union_find",
 )
 
 

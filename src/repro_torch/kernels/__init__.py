@@ -2,7 +2,8 @@
 
 One package per TPU kernel of the reference (``src/repro/kernels``):
 ``heap_kmin`` (phase 1), ``heap_sift`` (phase 3) and ``heap_insert``
-(phase 4).  The CUDA sources live in ``csrc/`` and are built by
-``_build`` at first use on the card; nothing here imports ``triton`` or
-compiles at import time.
+(phase 4) of the priority queue, and ``label_prop`` (the dynamic
+graph's and the union-find's label fixpoint).  The CUDA sources live in
+``csrc/`` and are built by ``_build`` at first use on the card; nothing
+here imports ``triton`` or compiles at import time.
 """

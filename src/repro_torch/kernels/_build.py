@@ -61,6 +61,10 @@ SIGNATURES = {
     "heap_sift_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # a, size, rem, m_left, K, cap, C, size_out, stream
     "heap_insert_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # n, eu, ev, E, valid, e_live, init, relabel, when, unless, io,
+    # scratch, ctrl, max_iters, stream
+    "label_prop_launch": [_I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                          _P, _I, _P],
 }
 
 _lock = threading.Lock()

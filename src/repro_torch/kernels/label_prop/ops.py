@@ -1,0 +1,203 @@
+"""Label propagation to the component-min fixpoint: the hand-written CUDA
+kernel (``csrc/label_prop.cu``) and its plain PyTorch version (DESIGN.md
+§11).
+
+One iteration is the reference's ``label_step_xla``: ``s`` = the
+scatter-min over edges of ``min(l[u], l[v])``, then ``l' = min(s, l[s])``
+— the pointer jump reads the OLD labels.  Iterated from the identity, the
+labels converge to the component-min id (labels only decrease, ``l[x] ≤
+x`` is invariant, and the min vertex of every component is a fixpoint of
+both the hook and the jump).
+
+:func:`propagate` is the one entry point; it picks its path from the
+output tensor's device: a CUDA tensor launches the kernel, which runs the
+whole fixpoint (or ``max_iters`` steps) in ONE cooperative launch, or
+raises; a CPU tensor runs :func:`propagate_plain`.  ``propagate.launches``
+counts kernel launches.  The reference's three layers are thin calls to
+it: :func:`label_step` (``max_iters=1``), :func:`connected_components`
+(the full fixpoint from the identity) and :func:`merge_labels` (the
+union-find fast path: the fixpoint of the CONTRACTED graph whose vertices
+are the current labels, composed with them).
+
+The reference pads the vertex set to ``n_shards`` blocks and the edges to
+the TPU kernel's streaming chunk; neither padding changes the result, and
+here ``n_shards`` is kept for API parity only.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+
+MAX_ITERS = 2 ** 31 - 1       # "to the fixpoint": int32 max
+
+
+def label_step_plain(labels: torch.Tensor, eu: torch.Tensor,
+                     ev: torch.Tensor) -> torch.Tensor:
+    """Torch twin of the reference's ``label_step_xla`` (element-wise
+    identical): one scatter-min hook + pointer jump through the OLD
+    labels.  ``eu``/``ev``: (E,) endpoints, invalid slots as (0, 0)."""
+    l = labels.to(torch.int32)
+    eu, ev = eu.long(), ev.long()
+    m = torch.minimum(l[eu], l[ev])
+    s = l.clone()
+    s.scatter_reduce_(0, eu, m, reduce="amin")
+    s.scatter_reduce_(0, ev, m, reduce="amin")
+    return torch.minimum(s, l[s.long()])
+
+
+def _live_edges(eu, ev, valid, e_live):
+    """The edge list with dead slots sanitized to (0, 0) self-loops, and
+    the live-prefix length the kernel would see."""
+    E = eu.numel()
+    live = torch.ones(E, dtype=torch.bool, device=eu.device)
+    n_live = E
+    if valid is not None:
+        live &= valid
+    if e_live is not None:
+        n_live = min(E, max(int(e_live), 0))
+        live &= torch.arange(E, device=eu.device) < n_live
+    return torch.where(live, eu, 0), torch.where(live, ev, 0), n_live
+
+
+def propagate_plain(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor,
+                    *, init: Optional[torch.Tensor] = None,
+                    valid: Optional[torch.Tensor] = None,
+                    e_live: Optional[torch.Tensor] = None,
+                    relabel: bool = False,
+                    when: Optional[torch.Tensor] = None,
+                    unless: Optional[torch.Tensor] = None,
+                    max_iters: int = MAX_ITERS) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device (it reads the
+    gates and the change test on the host).  Arguments as
+    :func:`propagate`; returns the iteration count as a () int32 tensor."""
+    dev = out.device
+    none = torch.zeros((), dtype=torch.int32, device=dev)
+    if when is not None and not bool(when):
+        return none
+    if unless is not None and bool(unless):
+        return none
+    u, v, n_live = _live_edges(eu, ev, valid, e_live)
+    n = out.numel()
+    if relabel:
+        if n_live == 0:
+            return none                  # contracted graph of no edge
+        cur = out.long()
+        u, v = out[u.long()], out[v.long()]
+        l = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        l = (init.to(torch.int32).clone() if init is not None
+             else torch.arange(n, dtype=torch.int32, device=dev))
+    it = 0
+    while it < max_iters:
+        l2 = label_step_plain(l, u, v)
+        it += 1
+        more = not torch.equal(l2, l)
+        l = l2
+        if not more:
+            break
+    out.copy_(l[cur] if relabel else l)
+    return torch.full((), it, dtype=torch.int32, device=dev)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def propagate(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor, *,
+              init: Optional[torch.Tensor] = None,
+              valid: Optional[torch.Tensor] = None,
+              e_live: Optional[torch.Tensor] = None,
+              relabel: bool = False,
+              when: Optional[torch.Tensor] = None,
+              unless: Optional[torch.Tensor] = None,
+              max_iters: int = MAX_ITERS) -> torch.Tensor:
+    """Run label propagation into ``out`` ((n,) int32, in place).
+
+    eu/ev: (E,) int32 endpoints in [0, n).  A slot is the (0, 0) no-op
+    when ``valid[e]`` is False ((E,) bool) or ``e >= e_live`` (() int32 on
+    the device).  The labels start at ``init`` ((n,) int32) or the
+    identity.  ``relabel``: the contracted form of ``merge_labels`` —
+    ``out`` holds valid component labels, edges map through them, and
+    ``out[x]`` becomes ``p[out[x]]`` for the contracted fixpoint ``p``.
+    ``when`` / ``unless`` (() bool on the device): do nothing unless
+    ``when`` is True and ``unless`` is False — the choice is made on the
+    device, so the host reads neither.  Stops after the first step that
+    changes nothing, or after ``max_iters`` steps.
+
+    Returns the number of steps run, a () int32 tensor on ``out``'s
+    device (0 when gated off), without synchronising."""
+    if out.device.type == "cpu":
+        return propagate_plain(eu, ev, out, init=init, valid=valid,
+                               e_live=e_live, relabel=relabel, when=when,
+                               unless=unless, max_iters=max_iters)
+    dev = out.device
+    n, E = out.numel(), eu.numel()
+    if n < 1:
+        raise ValueError("label_prop needs at least one vertex")
+    if not 0 <= max_iters <= MAX_ITERS:
+        raise ValueError(f"max_iters must lie in [0, {MAX_ITERS}]")
+    if relabel and init is not None:
+        raise ValueError("the relabel form starts from the identity")
+    _build.require(out, "out", torch.int32, (n,), dev)
+    _build.require(eu, "eu", torch.int32, (E,), dev)
+    _build.require(ev, "ev", torch.int32, (E,), dev)
+    for t, name, dtype, shape in ((valid, "valid", torch.bool, (E,)),
+                                  (e_live, "e_live", torch.int32, ()),
+                                  (init, "init", torch.int32, (n,)),
+                                  (when, "when", torch.bool, ()),
+                                  (unless, "unless", torch.bool, ())):
+        if t is not None:
+            _build.require(t, name, dtype, shape, dev)
+    scratch = torch.empty(3 * n, dtype=torch.int32, device=dev)
+    ctrl = torch.zeros(4, dtype=torch.int32, device=dev)
+    rc = _build.library().label_prop_launch(
+        n, eu.data_ptr(), ev.data_ptr(), E, _ptr(valid), _ptr(e_live),
+        _ptr(init), int(bool(relabel)), _ptr(when), _ptr(unless),
+        out.data_ptr(), scratch.data_ptr(), ctrl.data_ptr(), int(max_iters),
+        _build.stream(dev))
+    _build.check(rc, "label_prop")
+    propagate.launches += 1
+    return ctrl[0]
+
+
+propagate.launches = 0
+
+
+def label_step(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor, *,
+               n_shards: int = 1) -> torch.Tensor:
+    """One iteration (the reference's ``label_step``): a new (n,) int32
+    label array.  ``n_shards`` does not change the result (API parity)."""
+    out = torch.empty_like(labels, dtype=torch.int32)
+    propagate(eu, ev, out, init=labels.to(torch.int32), max_iters=1)
+    return out
+
+
+def connected_components(eu: torch.Tensor, ev: torch.Tensor, *, n: int,
+                         n_shards: int = 1, use_pallas: bool = False
+                         ) -> torch.Tensor:
+    """Component-min labels of the graph on [0, n) with the given edges
+    (invalid slots sanitized to (0, 0)).  ``n_shards``/``use_pallas`` are
+    kept for API parity: the device picks the path."""
+    out = torch.empty(n, dtype=torch.int32, device=eu.device)
+    propagate(eu, ev, out)
+    return out
+
+
+def merge_labels(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
+                 *, n: int) -> torch.Tensor:
+    """Union-find fast path: fold a batch of NEW edges into a valid
+    component-min labeling of the graph without them (the contracted
+    fixpoint, composed).  Invalid edge slots must be (0, 0)."""
+    out = labels.to(torch.int32).clone()
+    if out.numel() != n:
+        raise ValueError(f"labels must have {n} entries")
+    propagate(eu, ev, out, relabel=True)
+    return out
+
+
+__all__ = ["MAX_ITERS", "connected_components", "label_step",
+           "label_step_plain", "merge_labels", "propagate",
+           "propagate_plain"]

@@ -24,6 +24,11 @@ MODULES = [
     "repro_torch.kernels.heap_sift", "repro_torch.kernels.heap_sift.ref",
     "repro_torch.kernels.heap_insert",
     "repro_torch.kernels.heap_insert.ref",
+    "repro_torch.core.dynamic_graph", "repro_torch.core.device_graph",
+    "repro_torch.core.read_opt", "repro_torch.core.seq_union_find",
+    "repro_torch.core.batched_union_find", "repro_torch.core.pc_union_find",
+    "repro_torch.kernels.label_prop", "repro_torch.kernels.label_prop.ops",
+    "repro_torch.kernels.label_prop.ref",
 ]
 
 
@@ -59,12 +64,21 @@ def test_entry_points_refuse_to_run_without_cuda():
     points raise instead of running on the CPU."""
     code = """
 import pytest
-from repro_torch.core import (BatchedPriorityQueue, ShardedBatchedPQ,
+from repro_torch.core import (BatchedPriorityQueue, BatchedUnionFind,
+                              DeviceGraph, DynamicGraph, ShardedBatchedPQ,
+                              pc_adaptive_graph, pc_batched_union_find,
+                              pc_megapass_priority_queue,
                               pc_sharded_priority_queue)
 for make in (lambda: ShardedBatchedPQ(64, 4),
              lambda: BatchedPriorityQueue(64, 4),
              lambda: pc_sharded_priority_queue(64, 4, n_shards=2),
-             lambda: ShardedBatchedPQ(64, 4, device="cuda")):
+             lambda: ShardedBatchedPQ(64, 4, device="cuda"),
+             lambda: DeviceGraph(16, edge_capacity=64, c_max=4),
+             lambda: DynamicGraph(16),
+             lambda: BatchedUnionFind(16),
+             lambda: pc_adaptive_graph(16, edge_capacity=64, c_max=4),
+             lambda: pc_batched_union_find(16),
+             lambda: pc_megapass_priority_queue(64, 4)):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 print("refused")
@@ -86,7 +100,8 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
 
 def test_kernel_sources_ship_with_the_package():
     srcs = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
-    assert srcs == ["heap_insert.cu", "heap_kmin.cu", "heap_sift.cu"]
+    assert srcs == ["heap_insert.cu", "heap_kmin.cu", "heap_sift.cu",
+                    "label_prop.cu"]
     for name in srcs:
         text = (PORT / "kernels" / "csrc" / name).read_text()
         assert "src/repro/kernels/" in text          # names what it replaces
