@@ -8,7 +8,7 @@ Needs one CUDA device and ``nvcc`` (the kernels are built from
 each printing a line:
 
 1. ``device`` — the card's name, then ``nvidia-smi``'s name and power limit.
-2. ``build`` — the four kernels compiled for ``sm_90a`` (time, ptxas report).
+2. ``build`` — the five kernels compiled for ``sm_90a`` (time, ptxas report).
 3. ``kernels`` — ``heap_kmin``, ``heap_sift`` and ``heap_insert`` run on
    CUDA tensors at the main path's shapes (4,000,000 keys; K = 1 and
    K = 4 shards; c_max = 16) over seeded random heaps and batches — empty
@@ -51,6 +51,31 @@ each printing a line:
    8 threads of bench_unionfind's mix at 90% reads; launch count, final
    labels against the oracle of every union, and a replay through the
    kernel pass and the plain pass against ``SequentialUnionFind``.
+9. ``sorted_merge`` kernel checks — seeded merge-compact inputs at the
+   map's per-shard capacity (254,627 slots, K = 4 and K = 1) and at
+   N = 1000 and 3072: keep all / none / ≤ 16 deletions / random half,
+   b_count 0, 1 and 16, junk (unsorted, ±inf, NaN) in dropped slots and
+   dead lanes, empty A, merged length exactly N, a raw -0.0 and flushed
+   subnormal keys; each launch bit-equal to the plain version, the small
+   ones to the numpy oracle too; then per-launch times on a full map pass
+   at the map phase's fill (250,000 keys a shard, 16 deletions and 16 new
+   keys).
+10. ``map`` — ``pc_sharded_map`` (K = 4 key-range shards over [0, 1000),
+   c_max = 16) over 1,000,000 keys drawn as bench_map's ``_items``, 8
+   threads of bench_map's mix at 90% reads; sorted_merge launches, size
+   conservation, sorted in-range shards, a 150-batch replay of the
+   registry's mixes through the kernel pass and the plain pass (every
+   ``MapState`` field bit-equal, answers equal to ``SequentialSortedMap``,
+   every 10th batch with one blocking fetch, final contents equal to the
+   oracle's), ``range_sum`` against the float64 oracle (see
+   :func:`range_sum_check` and :func:`range_sum_exact_probes`), and
+   ``pc_megapass_map`` against its alternating twin.
+11. ``sketch`` — ``pc_sharded_sketch`` (K = 4 hash shards, c_max = 16,
+   topk_max = 8) over 1,000,000 counters drawn as bench_sketch's
+   ``_items``, 8 threads of bench_sketch's mix at 90% reads; exact
+   conservation of the total and of the distinct count, the 2^24
+   exactness precondition, and a 100-batch replay through the kernel pass
+   and the plain pass against ``SequentialSketch``.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -74,21 +99,31 @@ ROOT = Path(__file__).resolve().parent
 C_MAX = 16                     # bench_pq.C_MAX (and bench_graph's)
 N_KEYS = 4_000_000             # initial keys of the pq phases
 THREADS = 8
-OPS_PER_THREAD = 1000          # pq phases (depth cut to fit the graph)
+OPS_PER_THREAD = 200           # pq phases (depth cut to fit the run)
 REPLAY_BATCHES = 240
 GRAPH_VERTICES = 1_000_000     # graph, unionfind and label_prop checks
-GRAPH_OPS = 1000               # per thread, graph and unionfind phases
+GRAPH_OPS = 300                # per thread, graph and unionfind phases
 READ_PCT = 90                  # bench_graph / bench_unionfind c = 90
 GRAPH_REPLAY = 200
 UF_REPLAY = 120
+MAP_KEYS = 1_000_000           # map and sketch phases (bench_map's _items)
+MAP_KEY_RANGE = (0.0, 1000.0)  # bench_map.KEY_RANGE / bench_sketch's
+MAP_OPS = 250                  # per thread, map and sketch phases
+MAP_REPLAY = 150
+SKETCH_REPLAY = 100
+TOPK_MAX = 8
 KEY_RANGE = 2 ** 31 - 1
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_EPS = float(np.finfo(np.float32).eps)
+RANGE_SUM_EPS = 48             # range_sum limit in eps_f32 * P: ~3x the
+                               # worst measured at 10^6 keys (16.7)
 F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 REPLACES = {
     "heap_kmin": "src/repro/kernels/heap_kmin/kernel.py:86",
     "heap_sift": "src/repro/kernels/heap_sift/kernel.py:115",
     "heap_insert": "src/repro/kernels/heap_insert/kernel.py:170",
     "label_prop": "src/repro/kernels/label_prop/kernel.py:112",
+    "sorted_merge": "src/repro/kernels/sorted_merge/kernel.py:107",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
@@ -1012,6 +1047,576 @@ def uf_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
     }
 
 
+# ---------------------------------------------------------------------------
+# sorted_merge: every launch held against the plain version
+# ---------------------------------------------------------------------------
+def _bits_err(torch, got, want):
+    """(bit-equal?, largest |got - want| over the elements whose bits
+    differ, NaN counting as inf)."""
+    gb, wb = got.view(torch.int32), want.view(torch.int32)
+    d = torch.where(gb == wb, 0.0, (got.double() - want.double()).abs())
+    err = float(torch.nan_to_num(d, nan=math.inf).max()) if d.numel() else 0.0
+    return torch.equal(gb, wb), err
+
+
+class MergeCheck:
+    """Runs ``merge_compact_sharded`` (the kernel on CUDA tensors) and
+    ``merge_compact_plain`` on the same inputs into separate outputs and
+    compares them bit for bit; with ``ref``, each shard also against the
+    numpy oracle.  Any difference raises."""
+
+    def __init__(self):
+        self.calls = 0
+        self.max_abs_err = 0.0
+
+    def __call__(self, name, inputs, ref=False):
+        import torch
+
+        from repro_torch.kernels.sorted_merge import (merge_compact_plain,
+                                                      merge_compact_sharded)
+        from repro_torch.kernels.sorted_merge.ref import \
+            merge_compact_reference
+
+        got = merge_compact_sharded(*inputs)
+        want = merge_compact_plain(*inputs)
+        self.calls += 1
+        for g, w, what in zip(got, want, ("keys", "vals")):
+            same, err = _bits_err(torch, g, w)
+            self.max_abs_err = max(self.max_abs_err, err)
+            check(same, f"sorted_merge {name} {what}: kernel != plain "
+                        f"(max_abs_err {err})")
+        if ref:
+            host = [t.cpu().numpy() for t in inputs]
+            gk, gv = (t.cpu().numpy() for t in got)
+            for k in range(gk.shape[0]):
+                rk, rv = merge_compact_reference(*(h[k] for h in host))
+                check(np.array_equal(rk.view(np.int32), gk[k].view(np.int32))
+                      and np.array_equal(rv.view(np.int32),
+                                         gv[k].view(np.int32)),
+                      f"sorted_merge {name}: shard {k} != numpy oracle")
+        return got
+
+
+def merge_inputs(torch, dev, rng, K, n, c, mode, bc, *, junk=True,
+                 zeros=False, full=False, fill=None):
+    """One seeded merge-compact input on the card, shaped as a map pass
+    makes it: per shard a sorted body of ``s`` distinct keys (+inf past
+    it; ``s`` drawn from [n/2 - bc, n - bc], or ``fill``), ``keep`` by
+    ``mode`` (``all``, ``none``, ``few`` — at most 16 deletions —,
+    ``half``, ``empty`` — no body at all), and a sorted run of ``bc`` new
+    keys in ``c`` lanes.  ``junk`` writes unsorted values, ±inf and NaN
+    into dropped slots and dead lanes; ``zeros`` puts a raw -0.0 key into
+    even shards and a flushed subnormal into odd ones; ``full`` makes the
+    merged length exactly ``n``."""
+    ak = np.full((K, n), np.inf, np.float32)
+    av = np.full((K, n), np.inf, np.float32)
+    keep = np.zeros((K, n), bool)
+    bk = np.full((K, c), np.inf, np.float32)
+    bv = np.full((K, c), np.inf, np.float32)
+    bcount = np.zeros(K, np.int32)
+    idx = np.arange(n)
+    for k in range(K):
+        b = min(bc, c)
+        s = 0 if mode == "empty" else n if full else fill if fill else \
+            int(rng.integers(max(n // 2 - b, 0), n - b + 1))
+        pool = rng.choice(4 * (n + c), s + b, replace=False) - 2 * (n + c)
+        if zeros and s + b and not (pool == 0).any():
+            pool[int(rng.integers(s + b))] = 0
+        keys = pool.astype(np.float32)
+        if zeros:
+            keys[keys == 0] = np.float32(-0.0) if k % 2 == 0 else \
+                np.float32(1e-40)
+            keys = np.where((np.abs(keys) < np.finfo(np.float32).tiny)
+                            & (keys != 0), np.float32(0.0), keys)
+        a = keys[:s][np.argsort(keys[:s], kind="stable")]
+        run = np.sort(keys[s:])
+        vals = rng.uniform(-10, 10, s + b).astype(np.float32)
+        ak[k, :s], av[k, :s] = a, vals[:s]
+        kp = idx < s
+        if mode in ("none", "empty"):
+            kp[:] = False
+        elif mode == "few":
+            kp[rng.choice(s, b if full else min(16, s), replace=False)] = False
+        elif mode == "half":
+            kp &= rng.random(n) < 0.5
+        keep[k] = kp
+        bk[k, :b], bv[k, :b], bcount[k] = run, vals[s:], b
+        if junk:
+            dead = np.flatnonzero(~kp)
+            dead = dead[rng.random(dead.size) < 0.5]
+            pick = rng.integers(0, 4, dead.size)
+            ak[k, dead] = np.select(
+                [pick == 0, pick == 1, pick == 2],
+                [np.float32(np.inf), np.float32(-np.inf), np.float32(np.nan)],
+                rng.uniform(-1e6, 1e6, dead.size).astype(np.float32))
+            av[k, dead] = rng.uniform(-1e6, 1e6, dead.size)
+            bk[k, b:] = rng.uniform(-1e6, 1e6, c - b)
+    return tuple(torch.from_numpy(x).to(dev) for x in
+                 (ak, av, keep, bk, bv, bcount))
+
+
+def sorted_merge_phase(torch, dev, seed, n_map, fill):
+    """The merge at the map's per-shard capacity (K = 4 and K = 1), at
+    one N that is not a multiple of the kernel's tile and one that is:
+    every keep mode at b_count 0, 1 and 16, junk in the dropped slots,
+    empty A, merged length exactly N, signed and flushed zeros; small
+    cases also against the numpy oracle.  Returns the check record and
+    the (checked) input kept for timing: a full map pass at the map
+    phase's fill, K = 4 shards of ``fill`` keys each with 16 deletions
+    and 16 new keys."""
+    chk = MergeCheck()
+    rng = np.random.default_rng([seed, 14])
+    timed = merge_inputs(torch, dev, rng, 4, n_map, C_MAX, "few", C_MAX,
+                         junk=False, fill=fill)
+    chk("K=4 map fill", timed)
+    for K in (4, 1):
+        for n in (n_map, 1000, 3 * 1024):
+            ref = n <= 4096
+            for i, (mode, bc) in enumerate(
+                    (m, b) for m in ("all", "none", "few", "half")
+                    for b in (0, 1, C_MAX)):
+                inp = merge_inputs(torch, dev, rng, K, n, C_MAX, mode, bc,
+                                   junk=i % 2 == 0)
+                chk(f"K={K} N={n} {mode} b_count={bc}", inp, ref=ref)
+            for name, kw in (("empty A", dict(mode="empty", bc=C_MAX)),
+                             ("merged == N", dict(mode="few", bc=C_MAX,
+                                                  full=True)),
+                             ("zeros", dict(mode="few", bc=C_MAX,
+                                            zeros=True))):
+                chk(f"K={K} N={n} {name}",
+                    merge_inputs(torch, dev, rng, K, n, C_MAX, **kw),
+                    ref=ref)
+    return chk, timed
+
+
+def time_sorted_merge(torch, inputs):
+    """Per-launch times (``_per_launch_ms``) of the kernel and its plain
+    version on the kept map-fill input, each call into its own output
+    pair.  The bound counts the bytes the function needs once each (the
+    one-byte keep of every A slot, key and value of the kept slots only,
+    the B run and b_count; both outputs) over 3.35 TB/s, against a keep
+    test per slot and a binary search of the B run per kept slot over
+    67 TOP/s."""
+    from repro_torch.kernels.sorted_merge import (merge_compact_plain,
+                                                  merge_compact_sharded)
+
+    ak, av, keep, bk, bv, bc = inputs
+    K, n = ak.shape
+    c = bk.shape[1]
+    zero = torch.zeros((2, K, n), dtype=torch.float32, device=ak.device)
+    ring = [torch.empty_like(zero) for _ in range(RING)]
+    out = {
+        "ms": _per_launch_ms(torch, lambda r: merge_compact_sharded(
+            ak, av, keep, bk, bv, bc, out=(r[0], r[1])), ring, zero,
+            hold=True),
+        "plain_ms": _per_launch_ms(torch, lambda r: merge_compact_plain(
+            ak, av, keep, bk, bv, bc, out=(r[0], r[1])), ring[:PLAIN_RING],
+            zero, hold=False),
+        "library_ms": None, "K": K, "n": n, "c": c,
+        "kept": int(keep.sum()), "b_count": int(bc.sum()),
+    }
+    del ring
+    byte_ms = (K * n + 8 * out["kept"] + 8 * K * c + 4 * K + 8 * K * n) \
+        / HBM_BYTES_PER_S * 1e3
+    op_ms = (K * n + out["kept"] * (int(math.log2(c)) + 2)) \
+        / F32_OPS_PER_S * 1e3
+    out["bound_ms"] = max(byte_ms, op_ms)
+    out["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ordered map and the counting sketch under 8 client threads
+# ---------------------------------------------------------------------------
+def grid_keys(rng, n):
+    """``bench_map._items``' keys: n distinct f32 keys drawn from a
+    linspace grid of 8n points over [0, 1000)."""
+    grid = np.linspace(MAP_KEY_RANGE[0], MAP_KEY_RANGE[1], 8 * n,
+                       endpoint=False).astype(np.float32)
+    return rng.choice(grid, n, replace=False)
+
+
+def map_op(r, known, n):
+    """One op of ``bench_map._draw_op`` at c = READ_PCT: reads (lookup of
+    a known key, kth_smallest, range_count / range_sum over 50-wide
+    ranges) or updates (fresh insert, assign / delete of a known key)."""
+    p = r.random() * 100
+    if p < READ_PCT:
+        q = int(r.integers(0, 4))
+        if q == 0:
+            return "lookup", float(known[r.integers(len(known))])
+        if q == 1:
+            return "kth_smallest", int(r.integers(1, n))
+        lo = float(np.float32(r.uniform(0, MAP_KEY_RANGE[1] - 50)))
+        return ("range_count" if q == 2 else "range_sum"), (lo, lo + 50.0)
+    q = int(r.integers(0, 3))
+    if q == 0:
+        return "insert", (float(np.float32(r.uniform(*MAP_KEY_RANGE))),
+                          float(np.float32(r.uniform(0, 10))))
+    if q == 1:
+        return "assign", (float(known[r.integers(len(known))]),
+                          float(np.float32(r.uniform(0, 10))))
+    return "delete", float(known[r.integers(len(known))])
+
+
+def sketch_op(r, known):
+    """One op of bench_sketch's mix at c = READ_PCT: count (known key) /
+    total / distinct / topk, or an add (70% a known key)."""
+    if r.random() * 100 < READ_PCT:
+        q = int(r.integers(0, 4))
+        if q == 0:
+            return "count", float(known[r.integers(len(known))])
+        if q == 3:
+            return "topk", int(r.integers(1, 8))
+        return ("total" if q == 1 else "distinct"), None
+    if r.random() < 0.7:
+        key = float(known[r.integers(len(known))])
+    else:
+        key = float(np.float32(r.uniform(*MAP_KEY_RANGE)))
+    return "add", (key, float(int(r.integers(1, 10))))
+
+
+def check_shards(name, state, route):
+    """Every shard strictly ascending in [0, size), finite there, +inf
+    (keys and values) past it and in the scratch slot, and routed to
+    itself by ``route(keys) -> shard ids``."""
+    keys, vals, size = (t.cpu().numpy() for t in state)
+    for k in range(keys.shape[0]):
+        n = int(size[k])
+        body = keys[k, :n]
+        check(np.all(np.isfinite(body)) and np.all(np.diff(body) > 0),
+              f"{name}: shard {k} keys not finite and strictly ascending")
+        check(np.all(np.isposinf(keys[k, n:]))
+              and np.all(np.isposinf(vals[k, n:])),
+              f"{name}: shard {k} not (+inf, +inf) past its size")
+        check(np.all(route(body) == k), f"{name}: shard {k} holds keys "
+                                        f"routed elsewhere")
+
+
+def _states_bit_equal(torch, a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _replay_pair(torch, make, ds):
+    """Two copies of ``ds`` (a map or a sketch) from its state: the kernel
+    pass, and the plain pass through the ``_merge`` seam."""
+    from repro_torch.kernels.sorted_merge import merge_compact_plain
+
+    pair = []
+    for plain in (False, True):
+        h = make()
+        h.state = type(ds.state)(*(t.clone() for t in ds.state))
+        h._refresh_sizes(ds.state.size.cpu().numpy())
+        if plain:
+            h._merge = merge_compact_plain
+        pair.append(h)
+    return pair
+
+
+def map_replay(torch, m, n_replay, seed, worst):
+    """Seeded single-thread batches (the registry's update and read mixes,
+    every 5th wider than c_max) through the kernel pass and the plain
+    pass on clones of ``m``'s state: every ``MapState`` field bit-equal
+    after each batch, answers equal to ``SequentialSortedMap``
+    (``range_sum`` by :func:`range_sum_check`, its errors kept in
+    ``worst``); on the card every 10th batch runs under
+    :func:`one_fetch`."""
+    from repro_torch.core import batched_map as bm
+    from repro_torch.core.seq_map import SequentialSortedMap
+
+    rng = np.random.default_rng([seed, 13])
+    mk, mp = _replay_pair(torch, lambda: bm.ShardedMap(
+        m.capacity, m.c_max, n_shards=m.n_shards, key_range=m.key_range,
+        device=m.device), m)
+    oracle = SequentialSortedMap(m.items())
+    live = oracle._keys
+    ctx = {"keys": [live[i] for i in rng.choice(len(live), 64,
+                                                replace=False)]}
+    for b in range(n_replay):
+        k = int(rng.integers(2 * C_MAX + 1, 3 * C_MAX + 1)) if b % 5 == 4 \
+            else int(rng.integers(1, C_MAX + 1))
+        ms, ins = bm._gen_update(rng, k, ctx)
+        qm, qi = bm._gen_read(rng, int(rng.integers(1, 9)), ctx)
+        if b % 10 == 0 and m.device.type == "cuda":
+            hk, ak = one_fetch(torch, bm, lambda: (
+                mk.update_batch_async(ms, ins), mk.read_batch(qm, qi)))
+        else:
+            hk = mk.update_batch_async(ms, ins)
+            ak = mk.read_batch(qm, qi)
+        hp = mp.update_batch_async(ms, ins)
+        ap = mp.read_batch(qm, qi)
+        check(_states_bit_equal(torch, mk.state, mp.state),
+              f"map replay batch {b}: kernel state != plain state")
+        rk = hk.result()
+        want = [oracle.apply(x, y) for x, y in zip(ms, ins)]
+        check(rk == hp.result() == want,
+              f"map replay batch {b}: updates {rk} != oracle {want}")
+        check(ak == ap, f"map replay batch {b}: kernel reads != plain")
+        scale = prefix_scale(mk.state) if "range_sum" in qm else None
+        range_sum_check(qm, qi, ak, oracle.read_batch(qm, qi), worst,
+                        f"map replay batch {b}", scale)
+    check(mk.items() == oracle.items(), "map replay: final contents != "
+                                        "oracle")
+    return n_replay, mk, oracle
+
+
+def prefix_scale(state):
+    """``(lo, hi) -> P``: the magnitude of the f32 prefix sums a
+    ``range_sum`` answer is a difference of.  Per key-range shard the
+    read pass answers ``ps[hi] - ps[lo]`` with ``ps`` the shard's prefix
+    sums; P adds, over the shards the range touches, the float64 sums of
+    |value| up to both ends, from the map's state (one copy to the host;
+    the replay holds that state to the oracle's contents)."""
+    keys, vals, size = (t.cpu().numpy() for t in state)
+    rows = []
+    for k in range(keys.shape[0]):
+        n = int(size[k])
+        rows.append((keys[k, :n], np.concatenate([[0.0], np.cumsum(
+            np.abs(vals[k, :n].astype(np.float64)))])))
+
+    def scale(lo, hi):
+        p = 0.0
+        for ks, cum in rows:
+            i = np.searchsorted(ks, np.float32(lo), side="left")
+            j = np.searchsorted(ks, np.float32(hi), side="right")
+            if j > i:
+                p += cum[j] + cum[i]
+        return p
+
+    return scale
+
+
+def range_sum_check(methods, inputs, got, want, worst, where, scale):
+    """Every answer equal to the oracle's except ``range_sum``, a
+    difference of f32 prefix sums whose error grows with the prefix
+    sums, not with the answer.  It is held to
+    ``1e-3 + RANGE_SUM_EPS · eps_f32 · P`` (P from :func:`prefix_scale`),
+    and measured against the reference's own tolerance
+    ``1e-3 + 1e-5·|want|`` without failing on it: ``worst`` keeps the
+    worst absolute error, the worst error/tolerance, the worst
+    error/(eps_f32·P) and the count of answers outside the reference's
+    tolerance."""
+    for m, i, g, w in zip(methods, inputs, got, want):
+        if m != "range_sum":
+            check(g == w, f"{where}: {m} {g} != oracle {w}")
+            continue
+        err = abs(g - w)
+        ref_tol = 1e-3 + 1e-5 * abs(w)
+        p = scale(*i)
+        tol = 1e-3 + RANGE_SUM_EPS * F32_EPS * p
+        worst["n"] += 1
+        worst["over_ref"] += err > ref_tol
+        if err > worst["abs"]:
+            worst.update(abs=err, at=w)
+        worst["ratio"] = max(worst["ratio"], err / ref_tol)
+        worst["eps_p"] = max(worst["eps_p"], err / (F32_EPS * max(p, 1.0)))
+        check(err <= tol, f"{where}: range_sum {g} vs oracle {w}: error "
+                          f"{err} over 1e-3 + {RANGE_SUM_EPS} eps_f32 * "
+                          f"prefix magnitude {p} = {tol}")
+
+
+def range_sum_exact_probes(m, oracle, key_range, where):
+    """``range_sum`` over narrow ranges at the low end of every key-range
+    shard, where the shard's prefix sums stay in the thousands: there a
+    difference of f32 prefix sums resolves every key, and the answers
+    are held to the reference's own tolerance ``1e-3 + 1e-5·|want|``,
+    so a dropped or double-counted key fails.  Returns (probes, worst
+    error)."""
+    lo0, hi0 = key_range
+    width = (hi0 - lo0) / m.n_shards
+    qi = [tuple(np.float32([lo0 + k * width + 0.05 * i,
+                            lo0 + k * width + 0.05 * (i + 1)]).tolist())
+          for k in range(m.n_shards) for i in range(8)]
+    qm = ["range_sum"] * len(qi)
+    got, want = m.read_batch(qm, qi), oracle.read_batch(qm, qi)
+    worst = 0.0
+    for (lo, hi), g, w in zip(qi, got, want):
+        err = abs(g - w)
+        worst = max(worst, err)
+        check(err <= 1e-3 + 1e-5 * abs(w),
+              f"{where}: range_sum over [{lo}, {hi}] {g} vs oracle {w}: "
+              f"error {err} over the reference's tolerance")
+    return len(qi), worst
+
+
+def map_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
+    from repro_torch.core.pc_map import pc_megapass_map, pc_sharded_map
+    from repro_torch.core.sharded_pq import route_range_host
+
+    rng = np.random.default_rng([seed, 15])
+    keys = grid_keys(rng, n)
+    vals = rng.uniform(0, 10, n).astype(np.float32)
+    items = list(zip(keys.tolist(), vals.tolist()))
+    cap = shard_capacity(n + threads * ops + 2, 4)
+    t0 = time.perf_counter()
+    engine = pc_sharded_map(cap, C_MAX, n_shards=4, key_range=MAP_KEY_RANGE,
+                            items=items, device=dev)
+    m = engine.ds
+    size0 = len(m)
+    check(size0 == n, f"map: {size0} keys loaded, want {n}")
+    setup_s = time.perf_counter() - t0
+    def draw(r):
+        return map_op(r, keys, n)
+
+    (logs, seconds), launches = counted(
+        torch, dev, "map", counters, ("sorted_merge",),
+        lambda: drive_mixed(engine, threads, ops, seed, draw))
+    done = [(mt, res) for log in logs for mt, _, res in log]
+    ins = sum(1 for mt, res in done if mt == "insert" and res)
+    dels = sum(1 for mt, res in done if mt == "delete" and res)
+    check(size0 + ins - dels == len(m),
+          f"map: size {len(m)} != {size0} + {ins} inserts - {dels} deletes")
+    check_shards("map", m.state, lambda b: route_range_host(
+        b, 4, *MAP_KEY_RANGE))
+    n_ops = threads * ops
+    stats = {
+        "ops": n_ops, "seconds": seconds, "ops_per_s": n_ops / seconds,
+        "passes": engine.passes,
+        "mean_batch": float(np.mean(engine.combined_sizes)),
+        "host_ms_per_pass": seconds / engine.passes * 1e3,
+        "launches": launches, "setup_s": setup_s, "capacity": cap,
+        "inserted": ins, "deleted": dels, "final_size": len(m),
+        "device_bytes": sum(t.numel() * t.element_size() for t in m.state),
+    }
+    worst = {"n": 0, "abs": 0.0, "at": None, "ratio": 0.0, "over_ref": 0,
+             "eps_p": 0.0}
+    t0 = time.perf_counter()
+    stats["replayed"], mk, oracle = map_replay(torch, m, n_replay, seed,
+                                               worst)
+    stats["replay_s"] = time.perf_counter() - t0
+    # range_sum at the full key count: the threaded mix's 50-wide ranges
+    # and wider ones, against the float64 sums of the oracle
+    r = np.random.default_rng([seed, 16])
+    qi = [(lo, lo + 50.0) for lo in
+          np.float32(r.uniform(0, MAP_KEY_RANGE[1] - 50, 200)).tolist()]
+    qi += [(0.0, float(hi)) for hi in
+           np.float32(r.uniform(0, MAP_KEY_RANGE[1], 20)).tolist()]
+    qi += [MAP_KEY_RANGE]
+    qm = ["range_sum"] * len(qi)
+    range_sum_check(qm, qi, mk.read_batch(qm, qi), oracle.read_batch(qm, qi),
+                    worst, "map range_sum probe", prefix_scale(mk.state))
+    worst["exact_probes"], worst["exact_worst"] = range_sum_exact_probes(
+        mk, oracle, m.key_range, "map range_sum exact probe")
+    stats["range_sum"] = worst
+    # the megapass engine against its alternating twin, one client
+    r = np.random.default_rng([seed, 17])
+    ops_mp = [draw(r) for _ in range(400)]
+    answers, states = [], []
+    for use in (True, False):
+        eng = pc_megapass_map(cap, C_MAX, n_shards=4,
+                              key_range=MAP_KEY_RANGE, items=items,
+                              device=dev, use_megapass=use)
+        futs = [eng.submit(mt, i) for mt, i in ops_mp]
+        answers.append([f.result() for f in futs])
+        eng.close()
+        states.append(eng.ds.state)
+        if use:
+            stats["megapass"] = {"dispatches": eng.megapass_dispatches,
+                                 "rounds": eng.megapass_rounds}
+    check(answers[0] == answers[1], "map: megapass answers != alternating")
+    check(_states_bit_equal(torch, *states),
+          "map: megapass state != alternating state")
+    return stats
+
+
+
+def sketch_replay(torch, s, n_replay, seed):
+    """Seeded single-thread add and read batches (the registry's mixes,
+    every 5th wider than c_max) through the kernel pass and the plain pass
+    on clones of ``s``'s state: every ``SketchState`` field bit-equal
+    after each batch, answers equal to ``SequentialSketch``; on the card
+    every 10th batch runs under :func:`one_fetch`."""
+    from repro_torch.core import batched_sketch as bs
+    from repro_torch.core.seq_sketch import SequentialSketch
+
+    rng = np.random.default_rng([seed, 18])
+    sk, sp = _replay_pair(torch, lambda: bs.ShardedSketch(
+        s.capacity, s.c_max, n_shards=s.n_shards, topk_max=s.topk_max,
+        device=s.device), s)
+    oracle = SequentialSketch(s.counters())
+    live = list(oracle._c)
+    ctx = {"keys": [live[i] for i in rng.choice(len(live), 64,
+                                                replace=False)]}
+    for b in range(n_replay):
+        k = int(rng.integers(2 * C_MAX + 1, 3 * C_MAX + 1)) if b % 5 == 4 \
+            else int(rng.integers(1, C_MAX + 1))
+        ms, ins = bs._gen_update(rng, k, ctx)
+        qm, qi = bs._gen_read(rng, int(rng.integers(1, 9)), ctx)
+        if b % 10 == 0 and s.device.type == "cuda":
+            hk, ak = one_fetch(torch, bs, lambda: (
+                sk.update_batch_async(ms, ins), sk.read_batch(qm, qi)))
+        else:
+            hk = sk.update_batch_async(ms, ins)
+            ak = sk.read_batch(qm, qi)
+        hp = sp.update_batch_async(ms, ins)
+        ap = sp.read_batch(qm, qi)
+        check(_states_bit_equal(torch, sk.state, sp.state),
+              f"sketch replay batch {b}: kernel state != plain state")
+        rk = hk.result()
+        want = [oracle.apply(x, y) for x, y in zip(ms, ins)]
+        check(rk == hp.result() == want,
+              f"sketch replay batch {b}: adds {rk} != oracle {want}")
+        wr = oracle.read_batch(qm, qi)
+        check(ak == ap == wr,
+              f"sketch replay batch {b}: reads {ak} != oracle {wr}")
+    check(sk.counters() == oracle.items(),
+          "sketch replay: final counters != oracle")
+    return n_replay
+
+
+def sketch_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
+    from repro_torch.core.pc_sketch import pc_sharded_sketch
+    from repro_torch.core.sharded_pq import route_hash_host
+
+    rng = np.random.default_rng([seed, 19])
+    keys = grid_keys(rng, n)
+    weights = rng.integers(1, 10, n)
+    items = list(zip(keys.tolist(), weights.astype(float).tolist()))
+    total0 = int(weights.sum())
+    # exactness precondition: every partial sum of integer-valued f32
+    # counts stays below 2^24 (at most 9 per add)
+    check(total0 + 9 * threads * ops < 2 ** 24,
+          f"sketch: {total0} + adds could reach 2^24")
+    cap = shard_capacity(n + threads * ops + 2, 4)
+    t0 = time.perf_counter()
+    engine = pc_sharded_sketch(cap, C_MAX, n_shards=4, topk_max=TOPK_MAX,
+                               items=items, device=dev)
+    s = engine.ds
+    setup_s = time.perf_counter() - t0
+    check(s.read_batch(["total", "distinct"], [None, None])
+          == [float(total0), n], "sketch: prepopulated totals differ")
+    def draw(r):
+        return sketch_op(r, keys)
+
+    (logs, seconds), launches = counted(
+        torch, dev, "sketch", counters, ("sorted_merge",),
+        lambda: drive_mixed(engine, threads, ops, seed, draw))
+    adds = [(i, res) for log in logs for mt, i, res in log if mt == "add"]
+    added = sum(int(w) for (_, w), _ in adds)
+    created = sum(1 for _, res in adds if res)
+    total, distinct = s.read_batch(["total", "distinct"], [None, None])
+    check(total == total0 + added, f"sketch: total {total} != {total0} + "
+                                   f"{added} added")
+    check(distinct == n + created, f"sketch: distinct {distinct} != {n} + "
+                                   f"{created} created")
+    check(total < 2 ** 24, "sketch: total reached 2^24")
+    check_shards("sketch", s.state, lambda b: route_hash_host(b, 4))
+    n_ops = threads * ops
+    t0 = time.perf_counter()
+    replayed = sketch_replay(torch, s, n_replay, seed)
+    return {
+        "replayed": replayed, "replay_s": time.perf_counter() - t0,
+        "ops": n_ops, "seconds": seconds, "ops_per_s": n_ops / seconds,
+        "passes": engine.passes,
+        "mean_batch": float(np.mean(engine.combined_sizes)),
+        "host_ms_per_pass": seconds / engine.passes * 1e3,
+        "launches": launches, "setup_s": setup_s, "capacity": cap,
+        "adds": len(adds), "created": created, "total": total,
+        "device_bytes": sum(t.numel() * t.element_size() for t in s.state),
+    }
+
+
 def _profile(torch, name, one, n_passes, what, out):
     """Host time per call of ``one()`` over ``n_passes`` (after 20
     warm-up calls), then 100 calls under torch.profiler: device time and
@@ -1057,7 +1662,8 @@ def _profile(torch, name, one, n_passes, what, out):
 
 
 def profile_passes(seed=0, n_keys=N_KEYS, n_passes=300, width=4,
-                   threads=THREADS, ops=300, n=GRAPH_VERTICES, out=print):
+                   threads=THREADS, ops=300, n=GRAPH_VERTICES,
+                   map_keys=MAP_KEYS, out=print):
     """``--profile``: where a pass's time goes, at the main paths' sizes.
     For both queues: (1) ``n_passes`` single-thread ``apply`` calls of up
     to ``width`` extracts + inserts each (the threaded runs' mean batch
@@ -1065,13 +1671,16 @@ def profile_passes(seed=0, n_keys=N_KEYS, n_passes=300, width=4,
     (:func:`_profile`); (2) the same queue under ``threads`` clients, host
     time per combining pass.  For the graph (half a random tree of n
     vertices live, loaded straight into the edge buffer) and the
-    union-find: single-thread combining passes of one update and three
-    reads (about the threaded runs' mean batch), as the combiner runs
-    them, through :func:`_profile`."""
+    union-find (n vertices), the map and the sketch (``map_keys`` keys):
+    single-thread combining passes of one update and three reads (about
+    the threaded runs' mean batch), as the combiner runs them, through
+    :func:`_profile`."""
     import torch
 
     from repro_torch.core import batched_pq as bpq
     from repro_torch.core import sharded_pq as spq
+    from repro_torch.core.batched_map import ShardedMap
+    from repro_torch.core.batched_sketch import ShardedSketch
     from repro_torch.core.batched_union_find import BatchedUnionFind
     from repro_torch.core.device_graph import DeviceGraph
     from repro_torch.core.pc_pq import pc_priority_queue
@@ -1135,13 +1744,44 @@ def profile_passes(seed=0, n_keys=N_KEYS, n_passes=300, width=4,
         _profile(torch, name, one, n_passes,
                  "one update + three connected", out)
 
+    r = np.random.default_rng([seed, 20])
+    keys = grid_keys(r, map_keys)
+    vals = r.uniform(0, 10, map_keys).astype(np.float32)
+    cap = shard_capacity(map_keys + 2 * n_passes + 400, 4)
+    m = ShardedMap(cap, C_MAX, n_shards=4, key_range=MAP_KEY_RANGE,
+                   items=list(zip(keys.tolist(), vals.tolist())),
+                   device=dev)
+    sk = ShardedSketch(cap, C_MAX, n_shards=4, topk_max=TOPK_MAX,
+                       items=[(k, 5.0) for k in keys.tolist()], device=dev)
+    for name, ds, op in (("map", m, lambda: map_op(r, keys, map_keys)),
+                         ("sketch", sk, lambda: sketch_op(r, keys))):
+        def draw(update):
+            while True:
+                mt, i = op()
+                if (mt in ds.read_only) != update:
+                    return mt, i
+
+        def one():
+            # one combining pass of the threaded phases' mean batch: an
+            # update and three reads of the bench mix, as
+            # batched_read_optimized runs them
+            mt, i = draw(True)
+            h = ds.update_batch_async([mt], [i])
+            reads = [draw(False) for _ in range(3)]
+            ds.read_batch([q for q, _ in reads], [x for _, x in reads])
+            h.result()
+
+        _profile(torch, name, one, n_passes,
+                 "one update + three reads of the bench mix", out)
+
 
 def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES, n_cases=24,
         graph_vertices=GRAPH_VERTICES, graph_ops=GRAPH_OPS,
-        graph_replay=GRAPH_REPLAY, uf_replay=UF_REPLAY, timing=True,
-        out=print):
-    """Phases 2–8; returns the kernel records and each path's stats.
+        graph_replay=GRAPH_REPLAY, uf_replay=UF_REPLAY, map_keys=MAP_KEYS,
+        map_ops=MAP_OPS, map_replay=MAP_REPLAY, sketch_replay=SKETCH_REPLAY,
+        timing=True, out=print):
+    """Phases 2–11; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes and ``timing=False`` rehearses
     the control flow on the host, where the wrappers run their plain
     versions.)"""
@@ -1152,13 +1792,15 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     from repro_torch.core.pc_pq import (pc_priority_queue,
                                         pc_sharded_priority_queue)
     from repro_torch.kernels import (_build, heap_insert, heap_kmin,
-                                     heap_sift, label_prop)
+                                     heap_sift, label_prop, sorted_merge)
 
     dev = torch.device(dev_name)
+    t_run = time.perf_counter()
     counters = {"heap_kmin": heap_kmin.k_smallest_sharded,
                 "heap_sift": heap_sift.sift_wavefront_sharded,
                 "heap_insert": heap_insert.phase4_sharded,
-                "label_prop": label_prop.propagate}
+                "label_prop": label_prop.propagate,
+                "sorted_merge": sorted_merge.merge_compact_sharded}
 
     if dev.type == "cuda":
         t0 = time.perf_counter()
@@ -1173,13 +1815,15 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     total = n_keys + threads * ops + extra
     cap1 = shard_capacity(total, 1)
     cap4 = shard_capacity(total, 4)
+    t0 = time.perf_counter()
     checked, timed = kernel_phase(torch, dev, seed, [(1, cap1), (4, cap4)],
                                   n_cases)
     times = time_kernels(torch, timed) if timing else {}
     for name in ("heap_kmin", "heap_sift", "heap_insert"):
         t = times.get(name, {})
         out(f"kernels: {name} == plain on {checked.calls[name]} passes "
-            f"(max_abs_err {checked.max_abs_err[name]}); "
+            f"(max_abs_err {checked.max_abs_err[name]}; heap kernels "
+            f"{time.perf_counter() - t0:.1f} s); "
             + ("timing not measured" if not t else
                f"ms {t['ms']:.6f} plain_ms {t['plain_ms']:.6f} "
                f"bound_ms {t['bound_ms']:.3e} ({t['bound_by']}) "
@@ -1203,6 +1847,23 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{t['step_ms']:.6f} plain {t['step_plain_ms']:.6f} bound "
             f"{t['step_bound_ms']:.3e}; merge ms {t['merge_ms']:.6f}; "
             f"library_ms None"))
+    t0 = time.perf_counter()
+    map_cap = shard_capacity(map_keys + threads * map_ops + 2, 4)
+    sm_chk, sm_timed = sorted_merge_phase(torch, dev, seed, map_cap,
+                                          map_keys // 4)
+    checked.calls["sorted_merge"] = sm_chk.calls
+    checked.max_abs_err["sorted_merge"] = sm_chk.max_abs_err
+    if timing:
+        times["sorted_merge"] = time_sorted_merge(torch, sm_timed)
+    t = times.get("sorted_merge", {})
+    out(f"kernels: sorted_merge == plain on {sm_chk.calls} launches "
+        f"(max_abs_err {sm_chk.max_abs_err}; N = {map_cap}, 1000 and 3072, "
+        f"K = 4 and 1; {time.perf_counter() - t0:.1f} s); " + (
+            "timing not measured" if not t else
+            f"ms {t['ms']:.6f} (K {t['K']}, N {t['n']}, C {t['c']}, kept "
+            f"{t['kept']}, b_count {t['b_count']}) plain_ms "
+            f"{t['plain_ms']:.6f} bound_ms {t['bound_ms']:.3e} "
+            f"({t['bound_by']}) library_ms None"))
 
     rng = np.random.default_rng([seed, 0])
     init = rng.uniform(0, KEY_RANGE, n_keys).astype(np.float32)
@@ -1220,6 +1881,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                  st, ne, v, ni, c_max=C_MAX, n_shards=4, **kw))):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         engine = make()
         s = pq_phase(torch, name, engine, init, counters, seed, threads,
                      ops, n_replay, pass_fn, bpq.PLAIN_PHASES)
@@ -1232,7 +1894,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s['eliminated']}, launches {s['launches']}, heap bytes "
             f"{s['heap_bytes']}, max_memory_allocated "
             f"{s.get('max_memory_allocated', 'n/a')}; conservation, heap "
-            f"property and {s['replayed']}-batch kernel==plain replay ok")
+            f"property and {s['replayed']}-batch kernel==plain replay ok "
+            f"({time.perf_counter() - t0:.1f} s)")
         del engine
 
     for name, phase, n_rep in (("graph", graph_phase, graph_replay),
@@ -1261,10 +1924,51 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s['replayed']}-batch kernel==plain replay ok "
             f"({time.perf_counter() - t0:.1f} s)")
 
+    for name, phase, n_rep in (("map", map_phase, map_replay),
+                               ("sketch", sketch_phase, sketch_replay)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = phase(torch, dev, seed, map_keys, threads, map_ops, n_rep,
+                  counters)
+        if dev.type == "cuda":
+            s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        results[name] = s
+        if name == "map":
+            w, mp = s["range_sum"], s["megapass"]
+            extra = (f"{s['inserted']} inserts and {s['deleted']} deletes "
+                     f"took effect, final size {s['final_size']}; range_sum"
+                     f" worst error {w['abs']} (at a sum of {w['at']}) "
+                     f"over {w['n']} answers: {w['over_ref']} outside the "
+                     f"reference's tolerance (worst error/tolerance "
+                     f"{w['ratio']:.4f}), worst error {w['eps_p']:.2f} "
+                     f"eps_f32 * prefix (limit {RANGE_SUM_EPS}), "
+                     f"{w['exact_probes']} narrow low-prefix probes within "
+                     f"the reference's tolerance (worst error "
+                     f"{w['exact_worst']:.3g}); megapass {mp['rounds']} "
+                     f"rounds in {mp['dispatches']} dispatches == "
+                     f"alternating")
+        else:
+            extra = (f"{s['adds']} adds, {s['created']} created, final "
+                     f"total {s['total']}")
+        out(f"{name}: {s['ops_per_s']:.1f} ops/s ({s['ops']} ops in "
+            f"{s['seconds']:.3f} s, {threads} threads, {READ_PCT}% reads), "
+            f"passes {s['passes']}, mean batch {s['mean_batch']:.3f}, "
+            f"host ms per pass {s['host_ms_per_pass']:.3f}, {extra}; "
+            f"launches {s['launches']}, capacity {s['capacity']} a shard, "
+            f"set-up {s['setup_s']:.1f} s, device bytes "
+            f"{s['device_bytes']}, max_memory_allocated "
+            f"{s.get('max_memory_allocated', 'n/a')}; checks and "
+            f"{s['replayed']}-batch kernel==plain replay ok in "
+            f"{s['replay_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    out(f"run: phases 2-11 in {time.perf_counter() - t_run:.1f} s")
+
     paths = {"heap_kmin": ("pq-single", "pq-sharded"),
              "heap_sift": ("pq-single", "pq-sharded"),
              "heap_insert": ("pq-single", "pq-sharded"),
-             "label_prop": ("graph", "unionfind")}
+             "label_prop": ("graph", "unionfind"),
+             "sorted_merge": ("map", "sketch")}
     kernels = []
     for name in counters:
         t = times.get(name, {})

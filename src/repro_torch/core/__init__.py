@@ -1,5 +1,6 @@
 """Core — parallel combining, the batched priority queue, the dynamic
-graph and the union-find, on PyTorch."""
+graph, the union-find, the ordered map and the counting sketch, on
+PyTorch."""
 from .combining import ParallelCombiner, PublicationRecord, Request, Status
 from .flat_combining import flat_combining
 from .locks import LockDS, RWLockDS
@@ -45,6 +46,14 @@ from .pc_union_find import (
     pc_batched_union_find,
     pc_union_find,
 )
+from .seq_map import SequentialSortedMap
+from .batched_map import BatchedMap, MapState, ShardedMap
+from .pc_map import (fc_map, pc_adaptive_map, pc_map, pc_megapass_map,
+                     pc_sharded_map)
+from .seq_sketch import SequentialSketch
+from .batched_sketch import ShardedSketch, SketchState
+from .pc_sketch import (fc_sketch, pc_adaptive_sketch, pc_sharded_sketch,
+                        pc_sketch)
 from . import substrate
 
 __all__ = [
@@ -64,5 +73,10 @@ __all__ = [
     "SequentialUnionFind", "BatchedUnionFind", "UFState",
     "fc_union_find", "pc_adaptive_union_find", "pc_batched_union_find",
     "pc_union_find",
+    "SequentialSortedMap", "BatchedMap", "MapState", "ShardedMap",
+    "fc_map", "pc_adaptive_map", "pc_map", "pc_megapass_map",
+    "pc_sharded_map",
+    "SequentialSketch", "ShardedSketch", "SketchState",
+    "fc_sketch", "pc_adaptive_sketch", "pc_sharded_sketch", "pc_sketch",
     "substrate",
 ]

@@ -185,7 +185,9 @@ def batched_read_optimized(ds: BatchedReadDS, *, use_megapass: bool = False,
     def client_code(engine: ParallelCombiner, r: Request) -> None:
         return  # lanes did the work; nothing left for the thread
 
-    return ParallelCombiner(combiner_code, client_code, **kw)
+    engine = ParallelCombiner(combiner_code, client_code, **kw)
+    engine.ds = ds      # the structure it combines over (as MegapassCombiner)
+    return engine
 
 
 # canonical name for the device tier (see module docstring)

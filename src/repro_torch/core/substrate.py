@@ -235,6 +235,8 @@ _BUILTIN_MODULES = (
     "repro_torch.core.sharded_pq",
     "repro_torch.core.device_graph",
     "repro_torch.core.batched_union_find",
+    "repro_torch.core.batched_map",
+    "repro_torch.core.batched_sketch",
 )
 
 

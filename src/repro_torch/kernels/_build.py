@@ -12,7 +12,8 @@ to another path.
 
 The C entry points take device pointers and the CUDA stream as
 ``ctypes.c_void_p`` (``tensor.data_ptr()``,
-``torch.cuda.current_stream().cuda_stream``) and ints as ``ctypes.c_int``;
+``torch.cuda.current_stream().cuda_stream``), ints as ``ctypes.c_int`` and
+row strides as ``ctypes.c_longlong``;
 each launches on the given stream, never synchronises, and returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 """
@@ -53,6 +54,7 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     # a, size, K, cap, ne, c_max, ids, vals, stream
@@ -65,6 +67,13 @@ SIGNATURES = {
     # scratch, ctrl, max_iters, stream
     "label_prop_launch": [_I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                           _P, _I, _P],
+    # K, N, C, a_keys, its row stride, a_vals, stride, keep, stride,
+    # b_keys, stride, b_vals, stride, b_count, out keys, stride, out vals,
+    # stride, scratch, stream
+    "sorted_merge_launch": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P,
+                            _L, _P, _P, _L, _P, _L, _P, _P],
+    "sorted_merge_tile": [],
+    "sorted_merge_max_lanes": [],
 }
 
 _lock = threading.Lock()

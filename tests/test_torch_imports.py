@@ -29,6 +29,11 @@ MODULES = [
     "repro_torch.core.batched_union_find", "repro_torch.core.pc_union_find",
     "repro_torch.kernels.label_prop", "repro_torch.kernels.label_prop.ops",
     "repro_torch.kernels.label_prop.ref",
+    "repro_torch.kernels.sorted_merge", "repro_torch.kernels.sorted_merge.ops",
+    "repro_torch.kernels.sorted_merge.ref", "repro_torch.core.seq_map",
+    "repro_torch.core.batched_map", "repro_torch.core.pc_map",
+    "repro_torch.core.seq_sketch", "repro_torch.core.batched_sketch",
+    "repro_torch.core.pc_sketch",
 ]
 
 
@@ -64,11 +69,14 @@ def test_entry_points_refuse_to_run_without_cuda():
     points raise instead of running on the CPU."""
     code = """
 import pytest
-from repro_torch.core import (BatchedPriorityQueue, BatchedUnionFind,
-                              DeviceGraph, DynamicGraph, ShardedBatchedPQ,
-                              pc_adaptive_graph, pc_batched_union_find,
-                              pc_megapass_priority_queue,
-                              pc_sharded_priority_queue)
+from repro_torch.core import (BatchedMap, BatchedPriorityQueue,
+                              BatchedUnionFind, DeviceGraph, DynamicGraph,
+                              ShardedBatchedPQ, ShardedMap, ShardedSketch,
+                              pc_adaptive_graph, pc_adaptive_map,
+                              pc_adaptive_sketch, pc_batched_union_find,
+                              pc_megapass_map, pc_megapass_priority_queue,
+                              pc_sharded_map, pc_sharded_priority_queue,
+                              pc_sharded_sketch)
 for make in (lambda: ShardedBatchedPQ(64, 4),
              lambda: BatchedPriorityQueue(64, 4),
              lambda: pc_sharded_priority_queue(64, 4, n_shards=2),
@@ -78,7 +86,15 @@ for make in (lambda: ShardedBatchedPQ(64, 4),
              lambda: BatchedUnionFind(16),
              lambda: pc_adaptive_graph(16, edge_capacity=64, c_max=4),
              lambda: pc_batched_union_find(16),
-             lambda: pc_megapass_priority_queue(64, 4)):
+             lambda: pc_megapass_priority_queue(64, 4),
+             lambda: ShardedMap(64, 4),
+             lambda: BatchedMap(64, 4),
+             lambda: pc_sharded_map(64, 4, key_range=(0.0, 1.0)),
+             lambda: pc_megapass_map(64, 4, key_range=(0.0, 1.0)),
+             lambda: pc_adaptive_map(64, 4, key_range=(0.0, 1.0)),
+             lambda: ShardedSketch(64, 4),
+             lambda: pc_sharded_sketch(64, 4),
+             lambda: pc_adaptive_sketch(64, 4)):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 print("refused")
@@ -101,7 +117,7 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
 def test_kernel_sources_ship_with_the_package():
     srcs = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
     assert srcs == ["heap_insert.cu", "heap_kmin.cu", "heap_sift.cu",
-                    "label_prop.cu"]
+                    "label_prop.cu", "sorted_merge.cu"]
     for name in srcs:
         text = (PORT / "kernels" / "csrc" / name).read_text()
         assert "src/repro/kernels/" in text          # names what it replaces

@@ -197,4 +197,4 @@ def test_registry_entry_builds_the_port_structure():
         assert all(spec.result_ok(m, g, w)
                    for m, g, w in zip(methods, got, want))
     spec.dump_compare(ds, host)
-    assert tsub.names() == ["graph", "pq", "unionfind"]
+    assert tsub.names() == ["graph", "map", "pq", "sketch", "unionfind"]
