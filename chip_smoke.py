@@ -8,7 +8,7 @@ Needs one CUDA device and ``nvcc`` (the kernels are built from
 each printing a line:
 
 1. ``device`` — the card's name, then ``nvidia-smi``'s name and power limit.
-2. ``build`` — the five kernels compiled for ``sm_90a`` (time, ptxas report).
+2. ``build`` — the six kernels compiled for ``sm_90a`` (time, ptxas report).
 3. ``kernels`` — ``heap_kmin``, ``heap_sift`` and ``heap_insert`` run on
    CUDA tensors at the main path's shapes (4,000,000 keys; K = 1 and
    K = 4 shards; c_max = 16) over seeded random heaps and batches — empty
@@ -77,6 +77,40 @@ each printing a line:
    exactness precondition, and a 100-batch replay through the kernel pass
    and the plain pass against ``SequentialSketch``.
 
+12. ``flash_attention`` kernel checks — the kernel against its plain
+   version (the kernel's own 64 x 64 tiles) on every case of the CPU tests
+   (``ATTN_CASES``: GQA, causal and not, windows narrower than a tile,
+   softcaps, ``q_offset``, ``kv_len < Skv``, ``hd_v != hd``, head dims 8
+   to 256) and at the two model shapes (Qwen2-0.5B's scoring, (4, 4,096,
+   14/2 heads, 64), causal; gemma2's, (2, 8,192, 8/4 heads, 256), window
+   4,096, cap 50), each in f32 and in bf16, within the reference's
+   tolerances (2e-5 f32, 2e-2 bf16; TF32 off); then at the main shape in
+   bf16 the kernel's ms (the CUDA-event method above, 10 launches a
+   window), the plain version's, SDPA's (``is_causal``, ``enable_gqa``:
+   the library yardstick, never called by the port) and the bound (the
+   unmasked pairs' FLOP over 989 TFLOP/s against q, k, v and o over
+   3.35 TB/s); the kernel's and the plain version's ms at gemma2's shape.
+13. ``model`` — Qwen2-0.5B at full width (24 layers, 494 M parameters,
+   random bf16 weights from ``--seed``): ``lm.loss_fn`` and
+   ``model_apply(mode="train")`` with ``attention_impl="pallas"`` on
+   4 x 4,096 tokens, 24 kernel launches a forward; then
+   ``DecodeExecutor(max_batch=8)`` answering 8 requests of 512-token
+   prompts and 32 new tokens, in bf16 (timed) and with f32 weights and
+   cache.  The checks and their tolerances are :func:`scoring`'s and
+   :func:`model_phase`'s: the loss within 5e-3 of the plain path's, each
+   layer's attention output within 2e-2 of the plain path's on the same
+   bf16 input, f32 logits (and f32 decode steps) within 1e-4 of
+   max|logit| of the plain path (the kernel-path forward), bf16 logits and
+   bf16 decode steps no further from the f32 forward than 1.5x the bf16
+   plain path (forward).  A 24-layer random-weight model in bf16 sits
+   ~2 % of max|logit| off its f32 forward on either attention path, and
+   the two bf16 paths as far apart, so bf16 logits are held against that
+   noise, not to a fixed 2e-2.
+14. ``gemma2`` — Gemma2-2B at full width (d_model 2,304, head dim 256,
+   vocab 256,000), 2 layers (one local, one full): its scoring forward on
+   8,192 tokens held as the model's; the window, both softcaps, the
+   sandwich norms, gelu-tanh and the scaled embedding on the kernel path.
+
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
 exit); without a CUDA device, or without the repository's ``src/``, the
@@ -124,6 +158,7 @@ REPLACES = {
     "heap_insert": "src/repro/kernels/heap_insert/kernel.py:170",
     "label_prop": "src/repro/kernels/label_prop/kernel.py:112",
     "sorted_merge": "src/repro/kernels/sorted_merge/kernel.py:107",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:135",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
@@ -1617,6 +1652,457 @@ def sketch_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
     }
 
 
+# ---------------------------------------------------------------------------
+# the dense decoder: flash_attention and the model stack
+# ---------------------------------------------------------------------------
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:57
+BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
+# (B, Sq, Skv, H, K, hd, hd_v, causal, window, cap, q_offset, kv_len): the
+# CPU tests' cases (tests/test_torch_flash_attention.py), each run in f32
+# and in bf16; kv_len None means Skv
+ATTN_CASES = [
+    (2, 128, 128, 4, 2, 64, 64, True, 0, 0.0, 0, None),
+    (1, 64, 64, 4, 4, 32, 32, True, 0, 50.0, 0, None),
+    (2, 64, 256, 8, 2, 64, 64, False, 0, 0.0, 0, None),
+    (1, 256, 256, 4, 1, 64, 64, True, 64, 0.0, 0, None),
+    (1, 96, 96, 2, 2, 16, 16, True, 32, 30.0, 0, None),
+    (1, 33, 65, 2, 1, 8, 8, True, 0, 0.0, 0, None),
+    (1, 8, 32, 2, 2, 16, 16, True, 0, 0.0, 24, None),         # q_offset
+    (2, 40, 64, 4, 2, 16, 16, True, 0, 0.0, 24, 37),          # kv_len
+    (2, 40, 64, 4, 2, 16, 16, False, 0, 0.0, 24, 37),
+    (1, 48, 48, 4, 2, 16, 24, True, 0, 0.0, 0, None),         # hd_v != hd
+    (1, 64, 64, 2, 1, 16, 16, True, 8, 30.0, 0, None),        # window < tile
+    (1, 64, 104, 2, 1, 16, 16, True, 8, 30.0, 40, None),
+    (2, 200, 200, 8, 4, 256, 256, True, 64, 50.0, 0, None),   # gemma2 heads
+    (1, 130, 130, 4, 1, 80, 80, False, 0, 0.0, 0, None),      # hubert heads
+    (1, 100, 100, 4, 2, 128, 128, True, 0, 0.0, 0, None),
+]
+MODEL_ARCH = "qwen2_0_5b"      # serve.py's default --arch, full width
+MODEL_BATCH = 4                # scoring: 4 x 4,096 tokens
+MODEL_SEQ = 4096
+SERVE_BATCH = 8                # DecodeExecutor(max_batch=8): 8 requests
+SERVE_PROMPT = 512
+SERVE_NEW = 32
+GEMMA_ARCH = "gemma2_2b"       # full width, 2 layers (one local, one full)
+GEMMA_LAYERS = 2
+GEMMA_SEQ = 8192               # past the 4,096 window
+GEMMA_BATCH = 2                # the attention phase's gemma2 shape
+LOGIT_TOL = 2e-2               # of max|y|, one layer in bf16 (see scoring)
+LOSS_TOL = 5e-3                # tests/test_models.py:164-165
+F32_LOGIT_TOL = 1e-4           # of max|logit|, f32 weights and activations
+NOISE_RATIO = 1.5              # a bf16 path's error against the f32
+                               # forward, over the plain path's own
+
+
+def attention_bound(B, Sq, Skv, H, K, hd, hd_v, causal, window, q_offset,
+                    kv_len, itemsize):
+    """The least time for one call: the unmasked (q, k) pairs these
+    inputs need, 2 (hd + hd_v) FLOP each, over the peak for their type
+    (bf16 tensor cores, else f32 outside them), against q, k, v read once
+    and the output written once over 3.35 TB/s.  Returns (ms, by, FLOP,
+    bytes)."""
+    q_pos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(kv_len - 1, q_pos) if causal else np.full(Sq, kv_len - 1)
+    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros(Sq)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    flop = 2 * (hd + hd_v) * pairs * B * H
+    nbytes = itemsize * (B * Sq * H * (hd + hd_v) + B * Skv * K * (hd + hd_v))
+    op_ms = flop / (BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms
+            else "bytes", flop, nbytes)
+
+
+def _per_call_ms(torch, fn, n, windows, hold):
+    """Median over ``windows`` CUDA-event windows of ``n`` back-to-back
+    calls, divided by ``n`` (window 0 warms up).  With ``hold`` a spin
+    kernel keeps the stream busy while the host enqueues, so the window
+    holds the device's time only; a window the device caught up with
+    raises.  Without it (the plain version, host-bound) it is wall time."""
+    times = []
+    for w in range(windows + 1):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        t0.record()
+        for _ in range(n):
+            fn()
+        caught_up = hold and t0.query()
+        t1.record()
+        t1.synchronize()
+        if w:
+            check(not caught_up, "timing: the device caught up with the "
+                                 "host inside a held window")
+            times.append(t0.elapsed_time(t1) / n)
+    return float(np.median(times))
+
+
+def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
+    """``flash_attention`` (the kernel on CUDA tensors) against
+    ``flash_attention_plain`` with the kernel's own tiles, on every case of
+    the CPU tests and at the two model shapes, in f32 and in bf16, within
+    the reference's tolerances (atol = rtol = 2e-5 in f32, 2e-2 in bf16).
+    TF32 is off for the plain version's f32 products.  Then, at the main
+    shape (Qwen2-0.5B's scoring forward, bf16): the kernel's ms, the plain
+    version's (the model's 128-wide tiles), SDPA's as the library yardstick
+    (never called by the port), and the bound; the kernel and plain ms at
+    gemma2's shape too (SDPA takes no softcap: no yardstick there)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import kernel_blocks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = kernel_blocks() if dev.type == "cuda" else (64, 64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    main = (MODEL_BATCH, main_seq, main_seq, 14, 2, 64, 64, True, 0, 0.0, 0,
+            None)
+    gemma = (GEMMA_BATCH, gemma_seq, gemma_seq, 8, 4, 256, 256, True, 4096,
+             50.0, 0, None)
+    rec = {"checked": 0, "max_abs_err": 0.0,
+           "max_abs_err_by_dtype": {"float32": 0.0, "bfloat16": 0.0}}
+    kept = {}
+    for case in ATTN_CASES + [main, gemma]:
+        B, Sq, Skv, H, K, hd, hd_v, causal, window, cap, q_off, kv_len = case
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
+                       for s in ((B, Sq, H, hd), (B, Skv, K, hd),
+                                 (B, Skv, K, hd_v)))
+            kw = dict(causal=causal, window=window, cap=cap,
+                      q_offset=q_off, kv_len=kv_len,
+                      scale=256 ** -0.5 if case is gemma else None)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, block_q=blocks[0],
+                                         block_k=blocks[1], **kw)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"flash_attention {case}: shape/dtype")
+            g, w_ = got.float(), want.float()
+            err = (g - w_).abs()
+            tol = ATTN_TOL[dname]
+            check(bool(torch.isfinite(g).all()),
+                  f"flash_attention {case} {dname}: non-finite output")
+            bad = int((err > tol + tol * w_.abs()).sum())
+            e = float(err.max())
+            check(bad == 0, f"flash_attention {case} {dname}: {bad} "
+                            f"elements outside the tolerance, max_abs_err {e}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            rec["max_abs_err_by_dtype"][dname] = max(
+                rec["max_abs_err_by_dtype"][dname], e)
+            rec["checked"] += 1
+            if case in (main, gemma) and dname == "bfloat16":
+                kept["main" if case is main else "gemma"] = (q, k, v, kw)
+            del q, k, v, got, want, g, w_, err
+    if not timing:
+        return rec
+    F = torch.nn.functional
+    for which, n, n_plain in (("main", 10, 2), ("gemma", 5, 1)):
+        q, k, v, kw = kept[which]
+        B, Sq, H, hd = q.shape
+        _, Skv, K, hd_v = v.shape
+        pre = "" if which == "main" else "gemma_"
+        rec[pre + "ms"] = _per_call_ms(
+            torch, lambda: flash_attention(q, k, v, **kw), n, 5, hold=True)
+        rec[pre + "plain_ms"] = _per_call_ms(
+            torch, lambda: flash_attention_plain(q, k, v, block_q=128,
+                                                 block_k=128, **kw),
+            n_plain, 2, hold=False)
+        bound, by, flop, nbytes = attention_bound(
+            B, Sq, Skv, H, K, hd, hd_v, kw["causal"], kw["window"],
+            kw["q_offset"], Skv, 2)
+        rec[pre + "bound_ms"], rec[pre + "bound_by"] = bound, by
+        rec[pre + "flop"], rec[pre + "bytes"] = flop, nbytes
+        rec[pre + "shape"] = [B, Sq, H, K, hd, kw["window"], kw["cap"]]
+        if which == "main":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+            e = float((lib.transpose(1, 2).float()
+                       - flash_attention(q, k, v, **kw).float()).abs().max())
+            check(e <= ATTN_TOL["bfloat16"] * 4,
+                  f"SDPA yardstick disagrees with the kernel by {e}")
+            rec["library_ms"] = _per_call_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), n, 5,
+                hold=True)
+            rec["library_err"] = e
+    return rec
+
+
+def _model_cfg(arch, reduced, **kw):
+    from repro_torch import configs
+
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    return cfg.with_(**kw)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _logit_err(got, want):
+    """max|got − want| / max|want|, a batch row at a time (no full-size
+    temporaries); returns (that, max|want|)."""
+    err = scale = 0.0
+    for b in range(want.shape[0]):
+        err = max(err, float((got[b].float() - want[b]).abs().max()))
+        scale = max(scale, float(want[b].abs().max()))
+    return err / scale, scale
+
+
+def _upcast(tree):
+    """The parameter tree in f32 (bf16 → f32 is exact)."""
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_upcast(v) for v in tree)
+    return tree.float()
+
+
+def layer_check(torch, cfg, params, tokens):
+    """Teacher-forced, layer by layer along the kernel path: each layer's
+    attention output through the kernel and through the plain blockwise
+    path on the SAME bf16 input; returns the worst max|Δ| / max|y|."""
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import embed, rmsnorm
+
+    pallas = cfg.with_(attention_impl="pallas")
+    plain = cfg.with_(attention_impl="xla_chunked")
+    x = embed(params["embed"], tokens)
+    if cfg.scale_embed:
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    per = cfg.period
+    layers = [(transformer._index(params["stack"][j], i), per[j])
+              for i in range(cfg.n_full_periods) for j in range(len(per))]
+    layers += [(params["rem"][j], per[j % len(per)])
+               for j in range(cfg.n_remainder)]
+    worst = 0.0
+    for lp, lspec in layers:
+        h = rmsnorm(lp["n1"], x)
+        ya = attention.attn_apply(lp["mixer"], pallas, lspec, h,
+                                  positions=pos)
+        yb = attention.attn_apply(lp["mixer"], plain, lspec, h,
+                                  positions=pos)
+        worst = max(worst, _logit_err(ya, yb.float())[0])
+        x = transformer.block_apply(lp, pallas, lspec, x, positions=pos)
+    return worst
+
+
+def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
+    """The scoring forward through the kernel: ``lm.loss_fn`` once to warm
+    up, then — every count zeroed just before — ``lm.loss_fn`` and
+    ``model_apply(mode="train")`` with ``attention_impl="pallas"`` on bf16
+    weights, one flash_attention launch per layer each.  Then the checks
+    (their launches outside the counted run):
+
+    - the loss within LOSS_TOL of the plain blockwise path's
+      (``"xla_chunked"``, on the card);
+    - every layer's attention output, teacher-forced on the kernel path's
+      bf16 inputs, within LOGIT_TOL of max|y| of the plain path's;
+    - f32 weights (the bf16 ones upcast) and activations: the kernel
+      path's logits within F32_LOGIT_TOL of max|logit| of the plain
+      path's (the algorithm, end to end);
+    - bf16 end to end: the kernel path's error against that f32 forward
+      at most NOISE_RATIO times the plain path's own (the bf16 drift of
+      both, and between them, is printed)."""
+    from repro_torch.models import lm, transformer
+
+    pallas = cfg.with_(attention_impl="pallas")
+    plain = cfg.with_(attention_impl="xla_chunked")
+    batch = {"tokens": tokens, "labels": labels}
+    lm.loss_fn(params, pallas, batch)
+    _sync(torch, dev)
+
+    def drive():
+        t0 = time.perf_counter()
+        loss = lm.loss_fn(params, pallas, batch)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        logits, _ = transformer.model_apply(params, pallas, batch)
+        _sync(torch, dev)
+        return float(loss), logits, t1 - t0, time.perf_counter() - t1
+
+    (loss, logits, t_loss, t_fwd), launches = counted(
+        torch, dev, name, counters, ("flash_attention",), drive)
+    n_fa = launches["flash_attention"]
+    if dev.type == "cuda":
+        check(n_fa == 2 * cfg.n_layers, f"{name}: {n_fa} flash_attention "
+              f"launches in two forwards of {cfg.n_layers} layers")
+    B, S = tokens.shape
+    check(tuple(logits.shape) == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{name}: logits of shape {tuple(logits.shape)} not finite")
+    ref_loss = float(lm.loss_fn(params, plain, batch))
+    check(abs(loss - ref_loss) <= LOSS_TOL and math.isfinite(loss),
+          f"{name}: loss {loss} vs the plain path's {ref_loss}")
+    layer_err = layer_check(torch, cfg, params, tokens)
+    check(layer_err <= LOGIT_TOL, f"{name}: a layer's attention output "
+          f"differs from the plain path's by {layer_err:.3e} of max|y| "
+          f"(limit {LOGIT_TOL})")
+    ref, _ = transformer.model_apply(params, plain, batch)
+    bf16_vs_plain, scale = _logit_err(logits, ref)
+    p32 = _upcast(params)
+    truth, _ = transformer.model_apply(p32, plain, batch)
+    kernel_noise = _logit_err(logits, truth)[0]
+    plain_noise = _logit_err(ref, truth)[0]
+    del ref, logits
+    got32, _ = transformer.model_apply(p32, pallas, batch)
+    f32_err = _logit_err(got32, truth)[0]
+    del got32, truth, p32
+    check(f32_err <= F32_LOGIT_TOL, f"{name}: f32 kernel-path logits "
+          f"differ from the plain path's by {f32_err:.3e} of max|logit| "
+          f"(limit {F32_LOGIT_TOL})")
+    check(kernel_noise <= NOISE_RATIO * plain_noise,
+          f"{name}: bf16 kernel path {kernel_noise:.3e} off the f32 "
+          f"forward, {NOISE_RATIO}x the plain path's {plain_noise:.3e}")
+    return {"launches": launches, "flash_per_forward": n_fa / 2,
+            "loss": loss, "plain_loss": ref_loss, "layer_err": layer_err,
+            "f32_err": f32_err, "bf16_vs_plain": bf16_vs_plain,
+            "kernel_noise": kernel_noise, "plain_noise": plain_noise,
+            "max_logit": scale, "loss_s": t_loss, "forward_s": t_fwd,
+            "tokens_per_s": B * S / t_loss}
+
+
+def _step_errs(steps, fwd, first):
+    """Worst max|step − fwd[:, pos]| / max|fwd[:, pos]| over the kept
+    step logits, step t at position first + t."""
+    return max(_logit_err(s[:, None], fwd[:, first + t][:, None])[0]
+               for t, s in enumerate(steps))
+
+
+def serve(torch, dev, cfg, params, prompts, new, cache_dtype):
+    """``DecodeExecutor`` on ``prompts`` (one request each, ``new`` tokens
+    a request): a warm-up call, a timed prefill-only call (0 new tokens),
+    then the timed full call, which keeps every step's logits."""
+    from repro_torch.launch.serve import DecodeExecutor
+
+    n, prompt = prompts.shape
+    ex = DecodeExecutor(cfg.with_(attention_impl="pallas"), max_batch=n,
+                        max_len=prompt + new, params=params, device=dev,
+                        cache_dtype=cache_dtype, keep_logits=True)
+
+    def call(n_tokens):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = ex([{"prompt": p, "n_tokens": n_tokens} for p in prompts])
+        _sync(torch, dev)
+        return out, time.perf_counter() - t0
+
+    call(2)
+    _, t_prefill = call(0)
+    out, t_serve = call(new)
+    gen = np.stack(out)
+    check(gen.shape == (n, new) and len(ex.step_logits) == new + 1,
+          f"serving: tokens {gen.shape}, {len(ex.step_logits)} steps kept")
+    full = torch.from_numpy(np.concatenate([prompts, gen], 1)).to(dev)
+    return gen, full, ex.step_logits, t_prefill, t_serve, ex.device_steps
+
+
+def model_phase(torch, dev, seed, counters, reduced=False,
+                batch=MODEL_BATCH, seq=MODEL_SEQ, serve_batch=SERVE_BATCH,
+                prompt=SERVE_PROMPT, new=SERVE_NEW):
+    """Qwen2-0.5B at full width (24 layers, random bf16 weights from
+    ``seed``): the scoring forward (:func:`scoring`) on batch x seq tokens,
+    then ``DecodeExecutor(max_batch=serve_batch)`` answering serve_batch
+    requests of ``prompt`` tokens and ``new`` new ones (:func:`serve`):
+
+    - in bf16 (timed): every step's next-token logits (prefill's, then each
+      decode step's) against the f32 forward over the same tokens at the
+      same position at most NOISE_RATIO times as far off as the bf16
+      kernel-path forward's; the drift against that bf16 forward and its
+      greedy agreement are printed;
+    - with f32 weights and an f32 cache: every step's logits within
+      F32_LOGIT_TOL of max|logit| of the f32 kernel-path forward, and every
+      greedy token equal to its argmax wherever its top-2 margin exceeds
+      that tolerance."""
+    from repro_torch.models import transformer
+
+    cfg = _model_cfg(MODEL_ARCH, reduced)
+    rng = np.random.default_rng([seed, 14])
+    params = transformer.model_init(seed, cfg, device=dev)
+    n_params = transformer.count_params(params)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
+                                           dtype=np.int64)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
+                                           dtype=np.int64)).to(dev)
+    s = scoring(torch, dev, "model", cfg, params, tokens, labels, counters)
+    del tokens, labels
+    s["params"] = n_params
+
+    pallas = cfg.with_(attention_impl="pallas")
+    prompts = rng.integers(0, cfg.vocab, (serve_batch, prompt),
+                           dtype=np.int64).astype(np.int32)
+    gen, full, steps, t_prefill, t_serve, n_steps = serve(
+        torch, dev, cfg, params, prompts, new, torch.bfloat16)
+    fwd, _ = transformer.model_apply(params, pallas, {"tokens": full})
+    p32 = _upcast(params)
+    truth, _ = transformer.model_apply(p32, pallas, {"tokens": full})
+    drift = _step_errs(steps, fwd, prompt - 1)
+    step_noise = _step_errs(steps, truth, prompt - 1)
+    fwd_noise = _step_errs([fwd[:, prompt - 1 + t]
+                            for t in range(new + 1)], truth, prompt - 1)
+    agree = int((gen == fwd[:, prompt - 1:prompt - 1 + new].argmax(-1)
+                 .cpu().numpy()).sum())
+    del fwd, truth, steps
+    check(step_noise <= NOISE_RATIO * fwd_noise,
+          f"serving: bf16 step logits {step_noise:.3e} off the f32 "
+          f"forward, {NOISE_RATIO}x the bf16 forward's {fwd_noise:.3e}")
+
+    gen32, full32, steps32, _, _, _ = serve(torch, dev, cfg, p32, prompts,
+                                            new, torch.float32)
+    fwd32, _ = transformer.model_apply(p32, pallas, {"tokens": full32})
+    err32 = _step_errs(steps32, fwd32, prompt - 1)
+    check(err32 <= F32_LOGIT_TOL, f"serving f32: step logits differ from "
+          f"the kernel-path forward's by {err32:.3e} of max|logit|")
+    checked = tied = 0
+    for t in range(new):
+        want = fwd32[:, prompt - 1 + t]
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = ((top2[:, 0] - top2[:, 1])
+                 > F32_LOGIT_TOL * float(want.abs().max())).cpu().numpy()
+        am = want.argmax(-1).cpu().numpy()
+        bad = clear & (gen32[:, t] != am)
+        check(not bad.any(), f"serving f32: step {t} greedy tokens "
+              f"{gen32[bad, t]} are not the forward's argmax {am[bad]}")
+        checked += int(clear.sum())
+        tied += int((~clear).sum())
+    del fwd32, steps32, p32
+    s.update({
+        "serve_s": t_serve, "prefill_s": t_prefill,
+        "decode_tokens_per_s": serve_batch * new / (t_serve - t_prefill),
+        "prefill_tokens_per_s": serve_batch * prompt / t_prefill,
+        "device_steps": n_steps, "step_drift": drift,
+        "step_noise": step_noise, "fwd_noise": fwd_noise,
+        "greedy_agree": agree, "step_err_f32": err32,
+        "greedy_checked": checked, "greedy_near_ties": tied})
+    return s
+
+
+def gemma2_phase(torch, dev, seed, counters, reduced=False, seq=GEMMA_SEQ):
+    """Gemma2-2B at full width, ``GEMMA_LAYERS`` layers (one local with
+    the 4,096 window, one full): the scoring forward (:func:`scoring`) on
+    one sequence of ``seq`` tokens, past the window, so the window, the
+    attention softcap, the sandwich norms, gelu-tanh and the scaled
+    embedding go through the kernel path."""
+    from repro_torch.models import transformer
+
+    cfg = _model_cfg(GEMMA_ARCH, reduced, n_layers=GEMMA_LAYERS)
+    rng = np.random.default_rng([seed, 15])
+    params = transformer.model_init(seed, cfg, device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
+                                           dtype=np.int64)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
+                                           dtype=np.int64)).to(dev)
+    s = scoring(torch, dev, "gemma2", cfg, params, tokens, labels, counters)
+    check(s["max_logit"] <= cfg.logit_softcap + 1e-3,
+          "gemma2: logits past the final softcap")
+    s["params"] = transformer.count_params(params)
+    return s
+
+
 def _profile(torch, name, one, n_passes, what, out):
     """Host time per call of ``one()`` over ``n_passes`` (after 20
     warm-up calls), then 100 calls under torch.profiler: device time and
@@ -1780,11 +2266,14 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         graph_vertices=GRAPH_VERTICES, graph_ops=GRAPH_OPS,
         graph_replay=GRAPH_REPLAY, uf_replay=UF_REPLAY, map_keys=MAP_KEYS,
         map_ops=MAP_OPS, map_replay=MAP_REPLAY, sketch_replay=SKETCH_REPLAY,
+        attn_seq=MODEL_SEQ, model_reduced=False, model_batch=MODEL_BATCH,
+        model_seq=MODEL_SEQ, serve_batch=SERVE_BATCH,
+        serve_prompt=SERVE_PROMPT, serve_new=SERVE_NEW, gemma_seq=GEMMA_SEQ,
         timing=True, out=print):
-    """Phases 2–11; returns the kernel records and each path's stats.
-    (``dev_name="cpu"`` with small sizes and ``timing=False`` rehearses
-    the control flow on the host, where the wrappers run their plain
-    versions.)"""
+    """Phases 2–14; returns the kernel records and each path's stats.
+    (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
+    ``timing=False`` rehearses the control flow on the host, where the
+    wrappers run their plain versions.)"""
     import torch
 
     from repro_torch.core import batched_pq as bpq
@@ -1793,6 +2282,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                                         pc_sharded_priority_queue)
     from repro_torch.kernels import (_build, heap_insert, heap_kmin,
                                      heap_sift, label_prop, sorted_merge)
+    from repro_torch.kernels.flash_attention import flash_attention
 
     dev = torch.device(dev_name)
     t_run = time.perf_counter()
@@ -1800,7 +2290,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "heap_sift": heap_sift.sift_wavefront_sharded,
                 "heap_insert": heap_insert.phase4_sharded,
                 "label_prop": label_prop.propagate,
-                "sorted_merge": sorted_merge.merge_compact_sharded}
+                "sorted_merge": sorted_merge.merge_compact_sharded,
+                "flash_attention": flash_attention}
 
     if dev.type == "cuda":
         t0 = time.perf_counter()
@@ -1962,13 +2453,78 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s.get('max_memory_allocated', 'n/a')}; checks and "
             f"{s['replayed']}-batch kernel==plain replay ok in "
             f"{s['replay_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
-    out(f"run: phases 2-11 in {time.perf_counter() - t_run:.1f} s")
+    t0 = time.perf_counter()
+    fa = attention_phase(torch, dev, seed, attn_seq, gemma_seq, timing)
+    checked.calls["flash_attention"] = fa["checked"]
+    checked.max_abs_err["flash_attention"] = fa["max_abs_err"]
+    if timing:
+        times["flash_attention"] = fa
+    out(f"kernels: flash_attention == plain on {fa['checked']} launches "
+        f"({len(ATTN_CASES) + 2} cases x f32, bf16; max_abs_err "
+        f"{fa['max_abs_err_by_dtype']['float32']} f32, "
+        f"{fa['max_abs_err_by_dtype']['bfloat16']} bf16; tolerance atol = "
+        f"rtol = 2e-5 f32, 2e-2 bf16; {time.perf_counter() - t0:.1f} s); "
+        + ("timing not measured" if not timing else
+           f"ms {fa['ms']:.6f} at {fa['shape']} bf16 causal, plain_ms "
+           f"{fa['plain_ms']:.6f}, bound_ms {fa['bound_ms']:.6f} "
+           f"({fa['bound_by']}: {fa['flop']:.4e} FLOP of the unmasked pairs "
+           f"/ 989 TFLOP/s bf16 vs {fa['bytes']} bytes / 3.35 TB/s), "
+           f"library_ms {fa['library_ms']:.6f} (SDPA is_causal, "
+           f"enable_gqa; |SDPA - kernel| {fa['library_err']}); gemma2 "
+           f"{fa['gemma_shape']}: ms {fa['gemma_ms']:.6f}, plain_ms "
+           f"{fa['gemma_plain_ms']:.6f}, bound_ms "
+           f"{fa['gemma_bound_ms']:.6f} ({fa['gemma_bound_by']})"))
+
+    for name, phase, kw in (
+            ("model", model_phase, dict(
+                batch=model_batch, seq=model_seq, serve_batch=serve_batch,
+                prompt=serve_prompt, new=serve_new)),
+            ("gemma2", gemma2_phase, dict(seq=gemma_seq))):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = phase(torch, dev, seed, counters, reduced=model_reduced, **kw)
+        if dev.type == "cuda":
+            s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        s["seconds"] = time.perf_counter() - t0
+        results[name] = s
+        extra = "" if name != "model" else (
+            f"; serving: {serve_batch} requests x {serve_prompt}-token "
+            f"prompts + {serve_new} new tokens in {s['serve_s']:.3f} s "
+            f"(prefill alone {s['prefill_s']:.3f} s, "
+            f"{s['prefill_tokens_per_s']:.1f} prompt tokens/s; decode "
+            f"{s['decode_tokens_per_s']:.1f} tokens/s), "
+            f"{s['device_steps']} device steps; bf16 step logits "
+            f"{s['step_drift']:.3e} of max|logit| off the bf16 kernel-path "
+            f"forward ({s['greedy_agree']}/{serve_batch * serve_new} greedy "
+            f"tokens its argmax), {s['step_noise']:.3e} off the f32 forward "
+            f"(the bf16 forward: {s['fwd_noise']:.3e}); f32 step logits "
+            f"within {s['step_err_f32']:.3e} of the f32 kernel-path forward, "
+            f"{s['greedy_checked']} greedy tokens its argmax "
+            f"({s['greedy_near_ties']} near-ties not held)")
+        out(f"{name}: {s['params']} params; scoring {s['tokens_per_s']:.1f} "
+            f"tokens/s (loss_fn {s['loss_s']:.3f} s, model_apply "
+            f"{s['forward_s']:.3f} s), flash_attention launches "
+            f"{s['launches']['flash_attention']} "
+            f"({s['flash_per_forward']:.0f} per forward), loss "
+            f"{s['loss']:.6f} vs plain path {s['plain_loss']:.6f}; layer "
+            f"attention outputs within {s['layer_err']:.3e} of the plain "
+            f"path's; f32 logits within {s['f32_err']:.3e} of max|logit|; "
+            f"bf16 logits {s['bf16_vs_plain']:.3e} of max|logit| "
+            f"{s['max_logit']:.3f} off the plain path's, "
+            f"{s['kernel_noise']:.3e} off the f32 forward (plain path "
+            f"{s['plain_noise']:.3e})"
+            f"{extra}; max_memory_allocated "
+            f"{s.get('max_memory_allocated', 'n/a')} ({s['seconds']:.1f} s)")
+    out(f"run: phases 2-14 in {time.perf_counter() - t_run:.1f} s")
 
     paths = {"heap_kmin": ("pq-single", "pq-sharded"),
              "heap_sift": ("pq-single", "pq-sharded"),
              "heap_insert": ("pq-single", "pq-sharded"),
              "label_prop": ("graph", "unionfind"),
-             "sorted_merge": ("map", "sketch")}
+             "sorted_merge": ("map", "sketch"),
+             "flash_attention": ("model", "gemma2")}
     kernels = []
     for name in counters:
         t = times.get(name, {})
@@ -1989,6 +2545,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             rec.update({k: t.get(k) for k in (
                 "step_ms", "step_plain_ms", "step_bound_ms", "merge_ms",
                 "fixpoint_steps")})
+        if name == "flash_attention":
+            rec.update({k: t.get(k) for k in (
+                "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
+                "gemma_bound_ms")})
         kernels.append(rec)
     return kernels, results
 

@@ -12,8 +12,8 @@ to another path.
 
 The C entry points take device pointers and the CUDA stream as
 ``ctypes.c_void_p`` (``tensor.data_ptr()``,
-``torch.cuda.current_stream().cuda_stream``), ints as ``ctypes.c_int`` and
-row strides as ``ctypes.c_longlong``;
+``torch.cuda.current_stream().cuda_stream``), ints as ``ctypes.c_int``,
+floats as ``ctypes.c_float`` and strides as ``ctypes.c_longlong``;
 each launches on the given stream, never synchronises, and returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 """
@@ -55,6 +55,7 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     # a, size, K, cap, ne, c_max, ids, vals, stream
@@ -74,6 +75,14 @@ SIGNATURES = {
                             _L, _P, _P, _L, _P, _L, _P, _P],
     "sorted_merge_tile": [],
     "sorted_merge_max_lanes": [],
+    # q, k, v, o, B, H, K, Sq, Skv, hd, hd_v, the (batch, seq, head)
+    # strides of q, k, v and o, scale, cap, causal, window, kv_len,
+    # q_offset, dtype, stream
+    "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
+    + [_F, _F] + [_I] * 5 + [_P],
+    "flash_attention_block_q": [],
+    "flash_attention_block_k": [],
+    "flash_attention_max_head": [],
 }
 
 _lock = threading.Lock()

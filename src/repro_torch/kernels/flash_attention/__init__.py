@@ -1,0 +1,4 @@
+"""The dense decoder's full-sequence attention: the flash-attention kernel."""
+from .ops import flash_attention, flash_attention_plain
+
+__all__ = ["flash_attention", "flash_attention_plain"]

@@ -1,0 +1,183 @@
+"""Flash attention: the hand-written CUDA kernel
+(``csrc/flash_attention.cu``) and its plain PyTorch version.
+
+Blockwise online-softmax attention in the model's layout, q ``(B, Sq, H,
+hd)``, k ``(B, Skv, K, hd)``, v ``(B, Skv, K, hd_v)`` → ``(B, Sq, H,
+hd_v)`` in q's dtype, with GQA (head h reads KV head ``h // (H // K)``),
+a causal mask, a sliding window (``k_pos > q_pos - window``), a logit
+softcap ``cap·tanh(s/cap)`` applied before the mask, ``kv_len`` (the valid
+KV prefix) and ``q_offset`` (the absolute position of q's first row).  The
+math is f32 from f32 or bf16 inputs, with the finite ``NEG_INF = -1e30``
+sentinel and the ``max(l, 1e-30)`` clamp of the reference's Pallas kernel
+(``src/repro/kernels/flash_attention/kernel.py``): p stays f32 for p·v.
+
+:func:`flash_attention` is the one entry point; it picks its path from
+q's device: a CUDA tensor launches the kernel (one launch for all batches
+and heads) or raises, a CPU tensor runs :func:`flash_attention_plain`.
+``flash_attention.launches`` counts kernel launches.  ``block_q`` /
+``block_k`` are the plain version's tiles (the reference wrapper's
+arguments); the kernel tiles by its own compile-time sizes
+(:func:`kernel_blocks`).  Both visit KV tiles by the reference's skip
+rule, so they agree to rounding wherever a row has an unmasked key.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None, cap: float = 0.0,
+                          q_offset: int = 0, kv_len: Optional[int] = None,
+                          block_q: int = 128,
+                          block_k: int = 128) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, tile by tile as the Pallas
+    kernel sweeps it: q and KV zero-padded to whole tiles, KV tiles skipped
+    by the reference's rule, an online softmax carried over each q tile's
+    KV sweep.  GQA by a (K, G) split of the heads, no replication."""
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    hd_v = v.shape[-1]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    kv_len = Skv if kv_len is None else kv_len
+    block_q = min(block_q, max(Sq, 1))
+    block_k = min(block_k, max(Skv, 1))
+    pad_q = (-Sq) % block_q
+    pad_k = (-Skv) % block_k
+    nq, nk = (Sq + pad_q) // block_q, (Skv + pad_k) // block_k
+    dev = q.device
+    # (B, K, G, S, hd) queries; (B, K, S, hd) keys and values
+    qf = F.pad(q.float(), (0, 0, 0, 0, 0, pad_q))
+    qf = qf.reshape(B, Sq + pad_q, K, G, hd).permute(0, 2, 3, 1, 4)
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad_k)).permute(0, 2, 1, 3)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad_k)).permute(0, 2, 1, 3)
+    out = torch.empty((B, K, G, Sq + pad_q, hd_v), dtype=torch.float32,
+                      device=dev)
+    ar_q = torch.arange(block_q, device=dev)
+    ar_k = torch.arange(block_k, device=dev)
+    for i in range(nq):
+        q_lo = i * block_q + q_offset
+        qi = qf[:, :, :, i * block_q:(i + 1) * block_q]
+        q_pos = (q_lo + ar_q)[:, None]
+        m = torch.full((B, K, G, block_q), NEG_INF, device=dev)
+        l = torch.zeros((B, K, G, block_q), device=dev)
+        acc = torch.zeros((B, K, G, block_q, hd_v), device=dev)
+        for j in range(nk):
+            k_lo = j * block_k
+            if causal and k_lo > q_lo + block_q - 1:
+                break                         # fully above the diagonal
+            if window and k_lo + block_k - 1 < q_lo - window + 1:
+                continue                      # fully left of the window
+            kj = kf[:, :, k_lo:k_lo + block_k]
+            vj = vf[:, :, k_lo:k_lo + block_k]
+            s = torch.einsum("bkgqh,bkch->bkgqc", qi, kj) * scale
+            if cap:
+                s = cap * torch.tanh(s / cap)
+            k_pos = (k_lo + ar_k)[None, :]
+            mask = k_pos < kv_len
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if window:
+                mask = mask & (k_pos > q_pos - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkch->bkgqh", p, vj)
+            m = m_new
+        out[:, :, :, i * block_q:(i + 1) * block_q] = \
+            acc / torch.clamp(l, min=1e-30)[..., None]
+    o = out[:, :, :, :Sq].permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v)
+    return o.to(q.dtype)
+
+
+_limits = {}
+
+
+def kernel_blocks() -> Tuple[int, int]:
+    """(query rows, KV slots) of the built kernel's tiles."""
+    if not _limits:
+        lib = _build.library()
+        _limits["blocks"] = (lib.flash_attention_block_q(),
+                             lib.flash_attention_block_k())
+        _limits["head"] = lib.flash_attention_max_head()
+    return _limits["blocks"]
+
+
+def _strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} must be contiguous in its last dim")
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None, cap: float = 0.0,
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Flash attention in model layout (arguments as
+    :func:`flash_attention_plain`).  On CUDA tensors: one kernel launch on
+    the current stream, no host sync; q, k and v of one dtype (f32 or
+    bf16), each contiguous in its last dim (other strides are taken as
+    they are), ``hd`` and ``hd_v`` at most 256."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale, cap=cap,
+            q_offset=q_offset, kv_len=kv_len, block_q=block_q,
+            block_k=block_k)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got {dev}")
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    hd_v = v.shape[-1]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} must be on {dev}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype}, got {t.dtype}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if (tuple(k.shape) != (B, Skv, K, hd)
+            or tuple(v.shape) != (B, Skv, K, hd_v) or K == 0 or H % K):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not (B, Sq, H, hd), "
+                         f"(B, Skv, K, hd), (B, Skv, K, hd_v) with K | H")
+    kernel_blocks()
+    if not (0 < hd <= _limits["head"] and 0 < hd_v <= _limits["head"]):
+        raise ValueError(f"flash_attention takes head dims up to "
+                         f"{_limits['head']}, got {hd} and {hd_v}")
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= Skv or q_offset < 0 or window < 0:
+        raise ValueError(f"need 0 <= kv_len <= Skv, q_offset >= 0 and "
+                         f"window >= 0; got {kv_len}, {q_offset}, {window}")
+    o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
+    if o.numel() == 0:
+        return o
+    scale = hd ** -0.5 if scale is None else scale
+    rc = _build.library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
+        Sq, Skv, hd, hd_v, *_strides(q, "q"), *_strides(k, "k"),
+        *_strides(v, "v"), *_strides(o, "o"), float(scale), float(cap),
+        int(bool(causal)), int(window), kv_len, int(q_offset),
+        _DTYPES[q.dtype], _build.stream(dev))
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+__all__ = ["flash_attention", "flash_attention_plain", "kernel_blocks"]

@@ -1,0 +1,255 @@
+"""Attention family: GQA full / local self-attention, chunked online softmax.
+
+The port of the reference's ``models/attention.py``.  The full-sequence
+forward (``mode="train"``) picks its attention by ``cfg.attention_impl``:
+``"pallas"`` is the reference's switch for the kernel path and here runs
+the hand-written CUDA flash-attention kernel (``kernels/flash_attention``;
+its plain version on CPU tensors), ``"xla_chunked"`` the plain torch twin
+of the reference's blockwise scan (:func:`blockwise_attention`),
+``"naive"`` the O(S^2) oracle.  None of them is a fallback for another.
+Prefill attends with :func:`blockwise_attention` and decode (Sq == 1) with
+:func:`decode_attention` against the cache, whatever ``attention_impl``
+says, as in the reference.
+
+Caches are updated in place (the reference returns new arrays): prefill
+writes the prompt's K/V into the zeroed cache, or the last ``Smax`` of
+them rolled into the ring of a local layer; decode writes one slot.
+Cross-attention (the VLM's ``lspec.cross_attn``) raises: ROADMAP A15.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from .config import ArchConfig, LayerSpec
+from .layers import dense, dense_init, rope, softcap
+
+NEG_INF = -1e30
+IMPLS = ("xla_chunked", "naive", "pallas")
+
+
+def _no_cross(lspec: LayerSpec) -> None:
+    if lspec.cross_attn:
+        raise NotImplementedError(
+            "cross-attention (the VLM's image layers) is not ported yet: "
+            "ROADMAP A15")
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
+              lead: Tuple[int, ...] = ()):
+    H, K, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    return {"q": dense_init(gen, D, H * hd, bias=cfg.qkv_bias, lead=lead),
+            "k": dense_init(gen, D, K * hd, bias=cfg.qkv_bias, lead=lead),
+            "v": dense_init(gen, D, K * hd, bias=cfg.qkv_bias, lead=lead),
+            "o": dense_init(gen, H * hd, D, lead=lead)}
+
+
+# ---------------------------------------------------------------------------
+def _block_pairs(nq: int, nkv: int, q_chunk: int, kv_chunk: int,
+                 causal: bool, window: int) -> List[Tuple[int, List[int]]]:
+    """Each q chunk with the kv chunks it visits, in the reference's static
+    order (causal / local pruning)."""
+    out = []
+    for i in range(nq):
+        q_lo, q_hi = i * q_chunk, (i + 1) * q_chunk - 1
+        js = []
+        for j in range(nkv):
+            k_lo, k_hi = j * kv_chunk, (j + 1) * kv_chunk - 1
+            if causal and k_lo > q_hi:
+                continue                       # fully above the diagonal
+            if window and k_hi < q_lo - window + 1:
+                continue                       # fully outside the window
+            js.append(j)
+        if js:
+            out.append((i, js))
+    return out
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int = 0, scale: float,
+                        cap: float = 0.0, q_chunk: int, kv_chunk: int,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Skv,K,hd). Returns (B,Sq,H,hd_v).
+
+    The plain torch twin of the reference's scan: the same chunk pairs,
+    scores with f32 accumulation, the probabilities cast to v's dtype
+    before p·v (as the reference does), each q chunk's result cast to q's
+    dtype.  ``kv_len``: valid length of k/v.  (The reference's
+    ``attn_remat`` only changes its backward pass: no argument here.)"""
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    hd_v = v.shape[-1]
+    G = H // K
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    pad_q = (-Sq) % q_chunk
+    pad_kv = (-Skv) % kv_chunk
+    nq, nkv = (Sq + pad_q) // q_chunk, (Skv + pad_kv) // kv_chunk
+    dev = q.device
+    # (B, K, G, S, hd) queries, (B, K, 1, S, hd) keys and values
+    qf = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q)).float()
+    qf = qf.reshape(B, nq * q_chunk, K, G, hd).permute(0, 2, 3, 1, 4)
+    kf = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
+    vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    kf = kf.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = vf.permute(0, 2, 1, 3)[:, :, None]
+    valid_kv = Skv if kv_len is None else kv_len
+    out = torch.zeros((B, K, G, nq * q_chunk, hd_v), dtype=q.dtype,
+                      device=dev)
+    ar_q = torch.arange(q_chunk, device=dev)
+    ar_k = torch.arange(kv_chunk, device=dev)
+    for i, js in _block_pairs(nq, nkv, q_chunk, kv_chunk, causal, window):
+        qi = qf[:, :, :, i * q_chunk:(i + 1) * q_chunk]
+        q_pos = (i * q_chunk + ar_q)[:, None]
+        m = torch.full((B, K, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, K, G, q_chunk), device=dev)
+        acc = torch.zeros((B, K, G, q_chunk, hd_v), device=dev)
+        for j in js:
+            kj = kf[:, :, :, j * kv_chunk:(j + 1) * kv_chunk]
+            vj = vf[:, :, :, j * kv_chunk:(j + 1) * kv_chunk]
+            s = (qi @ kj.transpose(-1, -2)) * scale
+            s = softcap(s, cap)
+            k_pos = (j * kv_chunk + ar_k)[None, :]
+            mask = k_pos < valid_kv
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if window:
+                mask = mask & (k_pos > q_pos - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(vj.dtype).float() @ vj.float()
+            m = m_new
+        out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = \
+            (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, nq * q_chunk, H, hd_v)
+    return out[:, :Sq]
+
+
+def naive_attention(q, k, v, *, causal, window=0, scale, cap=0.0,
+                    kv_len=None):
+    """Reference O(S^2)-memory attention (oracle for tests)."""
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    hd_v = v.shape[-1]
+    G = H // K
+    qr = q.reshape(B, Sq, K, G, hd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qr.float(), k.float()) * scale
+    s = softcap(s, cap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        mask &= k_pos < kv_len
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckh->bkgqh", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0):
+    """One-token attention against a (B,Smax,K,hd) cache. q: (B,1,H,hd).
+
+    ``n_valid``: number of written cache slots.  Local-attention layers use
+    a ring cache of size window+1, so every written slot is in-window and
+    no extra window mask is needed.
+    """
+    B, _, H, hd = q.shape
+    _, Smax, K, _ = k_cache.shape
+    hd_v = v_cache.shape[-1]
+    G = H // K
+    qr = q.reshape(B, K, G, hd)
+    s = torch.einsum("bkgh,bckh->bkgc", qr.float(), k_cache.float()) * scale
+    s = softcap(s, cap)
+    mask = torch.arange(Smax, device=q.device) < n_valid
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckh->bkgh", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, hd_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
+               positions: torch.Tensor,
+               cache: Optional[Dict[str, Any]] = None,
+               cache_len: Optional[int] = None,
+               mode: str = "train") -> torch.Tensor:
+    """Self attention.  Returns y; in prefill and decode mode ``cache``
+    (``{"k", "v"}``) is updated in place."""
+    _no_cross(lspec)
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = cfg.attn_scale or hd ** -0.5
+    causal = cfg.causal
+    window = lspec.window if lspec.mixer == "local" else 0
+
+    q = dense(p["q"], x).reshape(B, S, H, hd)
+    k = dense(p["k"], x).reshape(B, S, K, hd)
+    v = dense(p["v"], x).reshape(B, S, K, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "train":
+        impl = cfg.attention_impl
+        if impl == "naive":
+            o = naive_attention(q, k, v, causal=causal, window=window,
+                                scale=scale, cap=cfg.attn_softcap)
+        elif impl == "pallas":
+            o = flash_attention(q, k, v, causal=causal, window=window,
+                                scale=scale, cap=cfg.attn_softcap,
+                                block_q=min(cfg.q_chunk, 128),
+                                block_k=min(cfg.kv_chunk, 128))
+        elif impl == "xla_chunked":
+            o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale, cap=cfg.attn_softcap,
+                                    q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk)
+        else:
+            raise ValueError(f"attention_impl must be one of {IMPLS}, got "
+                             f"{impl!r}")
+    elif mode == "prefill":
+        ck, cv = cache["k"], cache["v"]
+        Smax = ck.shape[1]
+        if S >= Smax:
+            # ring cache (local layers): keep the last Smax tokens at
+            # slots t % Smax (token t lands at slot t mod Smax)
+            ck.copy_(torch.roll(k[:, S - Smax:], S % Smax, dims=1))
+            cv.copy_(torch.roll(v[:, S - Smax:], S % Smax, dims=1))
+        else:
+            ck[:, :S] = k
+            cv[:, :S] = v
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                scale=scale, cap=cfg.attn_softcap,
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    elif mode == "decode":  # S == 1
+        ck, cv = cache["k"], cache["v"]
+        Smax = ck.shape[1]
+        slot = cache_len % Smax                  # ring for local layers
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        o = decode_attention(q, ck, cv, min(cache_len + 1, Smax),
+                             scale=scale, cap=cfg.attn_softcap)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    return dense(p["o"], o.reshape(B, S, H * hd))
+
+
+def attn_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
+                    max_len: int, dtype: torch.dtype = torch.bfloat16, *,
+                    device: torch.device, lead: Tuple[int, ...] = ()):
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    if lspec.mixer == "local" and lspec.window:
+        max_len = min(max_len, lspec.window + 1)
+    shape = lead + (batch, max_len, K, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

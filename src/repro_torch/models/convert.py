@@ -1,0 +1,100 @@
+"""The weight carry: the reference's parameter and cache trees, as numpy
+leaves, into the port's tensors, and back.
+
+The port keeps the reference's tree layout leaf for leaf, so the carry is
+a copy with no reordering and no transpose:
+
+- layer ``l = i·len(period) + j`` of the full periods is
+  ``tree["stack"][j]`` at index ``i`` along axis 0 (the reference's
+  ``_stack_init``); the ``n_remainder`` layers ``tree["rem"][j]`` follow;
+- dense weights stay ``(d_in, d_out)`` and apply as ``x @ w``; the
+  embedding stays ``(vocab, d)``;
+- bf16 leaves (numpy's ``bfloat16`` extension type) become
+  ``torch.bfloat16`` bit for bit, other dtypes keep theirs.
+
+The cache carries the same way (``{"stack", "rem", "prefix"}`` of
+``{"mixer": {"k", "v"}, "ffn": {}}`` blocks), so tests can compare the
+prefill and decode caches of both packages.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.batched_pq import resolve_device
+from .config import ArchConfig
+from .transformer import check_supported
+
+
+def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def tree_from_numpy(tree: Any, device=None) -> Any:
+    """Every array leaf of a nested dict / tuple / list as a tensor on
+    ``device`` (``None`` means the card)."""
+    dev = resolve_device(device)
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(go(v) for v in t)
+        return _leaf_to_torch(t, dev)
+
+    return go(tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The inverse for comparisons: a copy (the caches change in place),
+    bf16 tensors as float32 (exact), others in their dtype."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_numpy(v) for v in tree)
+    t = tree.detach().to("cpu", torch.float32 if tree.dtype == torch.bfloat16
+                         else tree.dtype, copy=True)
+    return t.numpy()
+
+
+def _check_layout(tree, cfg: ArchConfig, what: str) -> None:
+    n_full = cfg.n_full_periods
+    want = len(cfg.period) if n_full > 0 else 0
+    if len(tree["stack"]) != want or len(tree["rem"]) != cfg.n_remainder:
+        raise ValueError(
+            f"{what}: {len(tree['stack'])} stacks and {len(tree['rem'])} "
+            f"remainder layers for {cfg.name}, want {want} and "
+            f"{cfg.n_remainder}")
+
+    def leading(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                leading(v)
+        elif np.shape(t)[0] != n_full:
+            raise ValueError(f"{what}: a stacked leaf of shape "
+                             f"{np.shape(t)} for {n_full} full periods")
+
+    for st in tree["stack"]:
+        leading(st)
+
+
+def params_from_numpy(tree: Any, cfg: ArchConfig, device=None) -> Any:
+    """The reference's ``model_init`` tree (numpy leaves) as the port's
+    parameters for ``cfg``."""
+    check_supported(cfg)
+    _check_layout(tree, cfg, "params")
+    return tree_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree: Any, cfg: ArchConfig, device=None) -> Any:
+    """The reference's ``init_cache`` / prefill / decode cache tree as the
+    port's cache for ``cfg`` (updated in place by the port's steps)."""
+    check_supported(cfg)
+    _check_layout(tree, cfg, "cache")
+    return tree_from_numpy(tree, device)

@@ -1,0 +1,238 @@
+"""Transformer assembly: blocks, stacks of periods, caches.
+
+The port of the reference's ``models/transformer.py`` for the dense
+decoder families: ``full`` and ``local`` attention mixers with ``glu`` or
+``mlp`` FFNs (qwen2, yi, internlm2, gemma2).  The parameter tree keeps the
+reference's layout: ``params["stack"][j]`` holds period slot ``j`` of all
+``n_full_periods`` full periods stacked on a leading axis (layer
+``i·len(period) + j`` is index ``i`` there), then ``params["rem"]`` the
+remainder layers; the cache mirrors it.  The model runs the stack as a
+Python loop over periods (the reference's ``lax.scan``; ``use_scan`` and
+``remat`` change nothing in a forward pass without a gradient).
+
+What the slice does not build raises ``NotImplementedError`` with its
+ROADMAP item: the recurrent mixers and ``rwkv_cm`` (A12, with kernels B7
+and B8), MoE FFNs (A13), MLA and deepseek's dense first layer (A14), VLM
+cross-attention (A15), the audio frontend (A16).  The reference's
+``ShardCtx`` is not carried over: the port has one device (A9).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..core.batched_pq import resolve_device
+from . import attention
+from .config import ArchConfig, LayerSpec
+from .layers import (act_fn, dense, dense_init, embed, embed_init, rmsnorm,
+                     rmsnorm_init, softcap, unembed)
+
+_MISSING = {
+    "rglru": "the RG-LRU mixer: ROADMAP A12 (with kernel B8)",
+    "rwkv6": "the RWKV-6 mixer: ROADMAP A12 (with kernel B7)",
+    "rwkv_cm": "the RWKV channel mix: ROADMAP A12",
+    "mla": "multi-head latent attention: ROADMAP A14",
+    "moe": "mixture-of-experts FFNs: ROADMAP A13",
+}
+_MIXERS = ("full", "local")
+_FFNS = ("glu", "mlp")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    part of ``cfg`` that the port does not build yet."""
+    if cfg.audio_frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the audio frontend is not ported yet: ROADMAP A16")
+    if cfg.first_layer_ffn:
+        raise NotImplementedError(
+            f"{cfg.name}: the dense first-layer prefix is not ported yet: "
+            "ROADMAP A14")
+    for lspec in cfg.period:
+        for kind, known in ((lspec.mixer, _MIXERS), (lspec.ffn, _FFNS)):
+            if kind in _MISSING:
+                raise NotImplementedError(
+                    f"{cfg.name}: {_MISSING[kind]} is not ported yet")
+            if kind not in known:
+                raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
+        attention._no_cross(lspec)
+
+
+# ---------------------------------------------------------------------------
+# FFN variants
+# ---------------------------------------------------------------------------
+def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
+             d_ff: int = 0, *, lead: Tuple[int, ...] = ()):
+    D = cfg.d_model
+    F = d_ff or cfg.d_ff
+    p = {"up": dense_init(gen, D, F, lead=lead),
+         "down": dense_init(gen, F, D, lead=lead)}
+    if lspec.ffn == "glu":
+        p["gate"] = dense_init(gen, D, F, lead=lead)
+    return p
+
+
+def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x):
+    """GLU or MLP, the activation in f32, cast back before ``down``."""
+    act = act_fn(cfg.ffn_act)
+    if lspec.ffn == "glu":
+        h = act(dense(p["gate"], x).float()) * dense(p["up"], x).float()
+    else:
+        h = act(dense(p["up"], x).float())
+    return dense(p["down"], h.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Block = mixer + ffn with pre-(and optionally post-)norms
+# ---------------------------------------------------------------------------
+def block_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
+               d_ff: int = 0, *, lead: Tuple[int, ...] = ()):
+    dev = gen.device
+    p = {"n1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+         "mixer": attention.attn_init(gen, cfg, lspec, lead=lead),
+         "n2": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+         "ffn": ffn_init(gen, cfg, lspec, d_ff, lead=lead)}
+    if cfg.post_norm:
+        p["pn1"] = rmsnorm_init(cfg.d_model, device=dev, lead=lead)
+        p["pn2"] = rmsnorm_init(cfg.d_model, device=dev, lead=lead)
+    return p
+
+
+def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
+                cache=None, cache_len=None, mode="train"):
+    """One block; in prefill and decode mode ``cache`` (the block's) is
+    updated in place."""
+    h = attention.attn_apply(p["mixer"], cfg, lspec, rmsnorm(p["n1"], x),
+                             positions=positions,
+                             cache=cache["mixer"] if cache else None,
+                             cache_len=cache_len, mode=mode)
+    if cfg.post_norm:
+        h = rmsnorm(p["pn1"], h)
+    x = x + h
+    h = ffn_apply(p["ffn"], cfg, lspec, rmsnorm(p["n2"], x))
+    if cfg.post_norm:
+        h = rmsnorm(p["pn2"], h)
+    return x + h
+
+
+def block_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
+                     max_len: int, dtype: torch.dtype = torch.bfloat16, *,
+                     device: torch.device, lead: Tuple[int, ...] = ()):
+    mix = attention.attn_cache_init(cfg, lspec, batch, max_len, dtype,
+                                    device=device, lead=lead)
+    return {"mixer": mix, "ffn": {}}
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, so in-place cache writes land
+    in the stack."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def model_init(key: Union[int, torch.Generator], cfg: ArchConfig, *,
+               device=None) -> Dict[str, Any]:
+    """Random weights of the reference's distributions, drawn from a
+    ``torch.Generator`` (``key`` is one, or the seed of one on
+    ``device``; ``None`` means the card).  bf16 weights and embeddings,
+    f32 norm gains, zero biases.  Returns the parameter tree (the
+    reference also returns sharding specs; the port has none)."""
+    check_supported(cfg)
+    if isinstance(key, torch.Generator):
+        gen = key
+    else:
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(int(key))
+    dev = gen.device
+    p: Dict[str, Any] = {"embed": embed_init(gen, cfg.vocab, cfg.d_model)}
+    n_full = cfg.n_full_periods
+    p["stack"] = tuple(block_init(gen, cfg, lspec, lead=(n_full,))
+                       for lspec in cfg.period) if n_full > 0 else ()
+    p["rem"] = tuple(block_init(gen, cfg, cfg.period[j % len(cfg.period)])
+                     for j in range(cfg.n_remainder))
+    p["final_norm"] = rmsnorm_init(cfg.d_model, device=dev)
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    return p
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               dtype: torch.dtype = torch.bfloat16, device=None):
+    """Decode/prefill cache tree mirroring the param layout (K/V in
+    ``dtype``, bf16 as in the reference)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n_full = cfg.n_full_periods
+    stack = tuple(block_cache_init(cfg, lspec, batch, max_len, dtype,
+                                   device=dev, lead=(n_full,))
+                  for lspec in cfg.period) if n_full > 0 else ()
+    rem = tuple(block_cache_init(cfg, cfg.period[j % len(cfg.period)],
+                                 batch, max_len, dtype, device=dev)
+                for j in range(cfg.n_remainder))
+    return {"stack": stack, "rem": rem, "prefix": {}}
+
+
+def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+                mode: str = "train", cache=None,
+                cache_len: Optional[int] = None):
+    """Returns (logits, cache).  mode="train_hidden" skips the unembed and
+    returns the final hidden states (the chunked-loss path).  In prefill
+    and decode mode the cache is updated in place and returned;
+    ``cache_len`` (a Python int) is the number of tokens already in it."""
+    check_supported(cfg)
+    return_hidden = mode == "train_hidden"
+    if return_hidden:
+        mode = "train"
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens)
+    if cfg.scale_embed:
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    S = x.shape[1]
+    if mode == "decode":
+        positions = torch.full((1,), cache_len, dtype=torch.int64,
+                               device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)
+    kw = dict(positions=positions, cache_len=cache_len, mode=mode)
+
+    for i in range(cfg.n_full_periods):
+        for j, lspec in enumerate(cfg.period):
+            cj = (_index(cache["stack"][j], i) if cache is not None
+                  else None)
+            x = block_apply(_index(params["stack"][j], i), cfg, lspec, x,
+                            cache=cj, **kw)
+    for j in range(cfg.n_remainder):
+        lspec = cfg.period[j % len(cfg.period)]
+        cj = cache["rem"][j] if cache is not None else None
+        x = block_apply(params["rem"][j], cfg, lspec, x, cache=cj, **kw)
+
+    x = rmsnorm(params["final_norm"], x)
+    if return_hidden:
+        return x, None                     # chunked-loss path: no logits here
+    if "head" in params:
+        logits = dense(params["head"], x)
+    else:
+        logits = unembed(params["embed"], x)
+    logits = softcap(logits.float(), cfg.logit_softcap)
+    if mode == "train":
+        return logits, None
+    return logits, cache
+
+
+def count_params(params) -> int:
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                yield from leaves(v)
+        else:
+            yield t
+    return sum(int(x.numel()) for x in leaves(params))
