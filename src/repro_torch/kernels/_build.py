@@ -83,6 +83,12 @@ SIGNATURES = {
     "flash_attention_block_q": [],
     "flash_attention_block_k": [],
     "flash_attention_max_head": [],
+    # r, k, v, w, u, state0, y, S_T, B, S, H, hd, the (batch, seq, head)
+    # strides of r, k, v and w, dtype, stream
+    "rwkv6_scan_launch": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    # a, b, h0, hs, h_T, B, S, R, the (batch, seq) strides of a and b,
+    # stream
+    "rglru_scan_launch": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -18,12 +18,16 @@ from ..models import lm, transformer
 class DecodeExecutor:
     """Slot-based batched decode executor.
 
-    Holds a fixed (max_batch, ...) KV-cache; each call takes ≤ max_batch
+    Holds a fixed (max_batch, ...) cache; each call takes ≤ max_batch
     (prompt, n_tokens) requests, left-pads the prompts with token 0 (no
-    padding mask, positions from 0, as the reference), prefills them into
-    the slots and greedily decodes n_tokens.  The weights are drawn from
-    ``seed`` (``model_init``) unless ``params`` are given; the cache holds
-    K/V in ``cache_dtype`` (bf16, as the reference's).  The generated
+    padding mask, positions from 0, as the reference: a recurrent state
+    absorbs the padding tokens), prefills them into the slots and greedily
+    decodes n_tokens.  The weights are drawn from ``seed`` (``model_init``)
+    unless ``params`` are given.  The cache is K/V for attention layers
+    (a ring of window + 1 slots for local ones), the recurrent state for
+    RWKV-6 and RG-LRU layers (O(1) in the context): K/V, the RG-LRU conv
+    history and the RWKV token-shift inputs in ``cache_dtype`` (bf16, as
+    the reference's), the recurrent states in f32.  The generated
     tokens stay on the device until one fetch at the end of the call.
     With ``keep_logits`` the call keeps each step's next-token logits in
     ``step_logits`` (prefill first, then each decode step's).

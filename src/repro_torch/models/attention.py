@@ -159,8 +159,9 @@ def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0):
     """One-token attention against a (B,Smax,K,hd) cache. q: (B,1,H,hd).
 
     ``n_valid``: number of written cache slots.  Local-attention layers use
-    a ring cache of size window+1, so every written slot is in-window and
-    no extra window mask is needed.
+    a ring cache of size window+1 and every written slot is attended, as in
+    the reference: once the ring is full the step sees window + 1
+    positions, where the full-sequence forward sees window (ROADMAP C).
     """
     B, _, H, hd = q.shape
     _, Smax, K, _ = k_cache.shape

@@ -9,12 +9,24 @@ a copy with no reordering and no transpose:
   ``_stack_init``); the ``n_remainder`` layers ``tree["rem"][j]`` follow;
 - dense weights stay ``(d_in, d_out)`` and apply as ``x @ w``; the
   embedding stays ``(vocab, d)``;
+- the recurrent leaves keep the reference's names and shapes: RG-LRU's
+  ``in_x``, ``in_g``, ``gate_a``, ``gate_x``, ``out`` (dense),
+  ``conv_w`` ``(W, d_rnn)``, ``conv_b``, ``lam``; RWKV-6's ``w_r``,
+  ``w_k``, ``w_v``, ``w_g``, ``w_o``, ``lora_a``, ``lora_wa``,
+  ``lora_b_{r,k,v,g,w}`` (dense), ``mu_{r,k,v,g,w}``, ``w0``, ``ln_g``
+  ``(d_model,)`` and ``u`` ``(H, hd)``; the channel mix's ``w_k``,
+  ``w_v``, ``w_r`` and ``mu_k``, ``mu_r``;
 - bf16 leaves (numpy's ``bfloat16`` extension type) become
   ``torch.bfloat16`` bit for bit, other dtypes keep theirs.
 
-The cache carries the same way (``{"stack", "rem", "prefix"}`` of
-``{"mixer": {"k", "v"}, "ffn": {}}`` blocks), so tests can compare the
-prefill and decode caches of both packages.
+The cache carries the same way: ``{"stack", "rem", "prefix"}`` of
+``{"mixer": ..., "ffn": ...}`` blocks, the mixer's ``{"k", "v"}`` (an
+attention layer), ``{"h", "conv"}`` (RG-LRU: ``(B, d_rnn)`` f32 and
+``(B, W - 1, d_rnn)``) or ``{"state", "x_prev"}`` (RWKV-6: ``(B, H, hd,
+hd)`` f32 and ``(B, d_model)``), the FFN's ``{"x_prev"}`` for the RWKV
+channel mix, else ``{}``; each leaf keeps its dtype, so tests can compare
+the prefill and decode caches of both packages.  The layout check is
+generic (period slots and the stacked leading axis), for every family.
 """
 from __future__ import annotations
 

@@ -1,19 +1,23 @@
 """Transformer assembly: blocks, stacks of periods, caches.
 
 The port of the reference's ``models/transformer.py`` for the dense
-decoder families: ``full`` and ``local`` attention mixers with ``glu`` or
-``mlp`` FFNs (qwen2, yi, internlm2, gemma2).  The parameter tree keeps the
+decoder and recurrent families: ``full`` and ``local`` attention mixers
+(``models/attention.py``) and the ``rglru`` and ``rwkv6`` recurrent mixers
+(``models/recurrent.py``), with ``glu``, ``mlp`` or ``rwkv_cm`` FFNs (qwen2,
+yi, internlm2, gemma2, recurrentgemma, rwkv6).  The parameter tree keeps the
 reference's layout: ``params["stack"][j]`` holds period slot ``j`` of all
 ``n_full_periods`` full periods stacked on a leading axis (layer
 ``i·len(period) + j`` is index ``i`` there), then ``params["rem"]`` the
-remainder layers; the cache mirrors it.  The model runs the stack as a
+remainder layers; the cache mirrors it, a block's cache being
+``{"mixer": ..., "ffn": ...}`` (K/V, ``{"h", "conv"}`` or
+``{"state", "x_prev"}``; ``{"x_prev"}`` for ``rwkv_cm``, else ``{}``).
+The model runs the stack as a
 Python loop over periods (the reference's ``lax.scan``; ``use_scan`` and
 ``remat`` change nothing in a forward pass without a gradient).
 
-What the slice does not build raises ``NotImplementedError`` with its
-ROADMAP item: the recurrent mixers and ``rwkv_cm`` (A12, with kernels B7
-and B8), MoE FFNs (A13), MLA and deepseek's dense first layer (A14), VLM
-cross-attention (A15), the audio frontend (A16).  The reference's
+What the port does not build yet raises ``NotImplementedError`` with its
+ROADMAP item: MoE FFNs (A13), MLA and deepseek's dense first layer (A14),
+VLM cross-attention (A15), the audio frontend (A16).  The reference's
 ``ShardCtx`` is not carried over: the port has one device (A9).
 """
 from __future__ import annotations
@@ -24,20 +28,23 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..core.batched_pq import resolve_device
-from . import attention
+from . import attention, recurrent
 from .config import ArchConfig, LayerSpec
 from .layers import (act_fn, dense, dense_init, embed, embed_init, rmsnorm,
                      rmsnorm_init, softcap, unembed)
 
 _MISSING = {
-    "rglru": "the RG-LRU mixer: ROADMAP A12 (with kernel B8)",
-    "rwkv6": "the RWKV-6 mixer: ROADMAP A12 (with kernel B7)",
-    "rwkv_cm": "the RWKV channel mix: ROADMAP A12",
     "mla": "multi-head latent attention: ROADMAP A14",
     "moe": "mixture-of-experts FFNs: ROADMAP A13",
 }
-_MIXERS = ("full", "local")
-_FFNS = ("glu", "mlp")
+# mixer kind -> (init, apply)
+_MIXERS = {
+    "full": (attention.attn_init, attention.attn_apply),
+    "local": (attention.attn_init, attention.attn_apply),
+    "rglru": (recurrent.rglru_init, recurrent.rglru_apply),
+    "rwkv6": (recurrent.rwkv6_init, recurrent.rwkv6_apply),
+}
+_FFNS = ("glu", "mlp", "rwkv_cm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -65,6 +72,8 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
              d_ff: int = 0, *, lead: Tuple[int, ...] = ()):
+    if lspec.ffn == "rwkv_cm":
+        return recurrent.rwkv_cm_init(gen, cfg, lead=lead)
     D = cfg.d_model
     F = d_ff or cfg.d_ff
     p = {"up": dense_init(gen, D, F, lead=lead),
@@ -74,8 +83,12 @@ def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
     return p
 
 
-def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x):
-    """GLU or MLP, the activation in f32, cast back before ``down``."""
+def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, cache=None,
+              mode="train"):
+    """GLU or MLP, the activation in f32, cast back before ``down``; or
+    the RWKV channel mix (its ``cache`` updated in place)."""
+    if lspec.ffn == "rwkv_cm":
+        return recurrent.rwkv_cm_apply(p, cfg, x, cache=cache, mode=mode)
     act = act_fn(cfg.ffn_act)
     if lspec.ffn == "glu":
         h = act(dense(p["gate"], x).float()) * dense(p["up"], x).float()
@@ -90,8 +103,9 @@ def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x):
 def block_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
                d_ff: int = 0, *, lead: Tuple[int, ...] = ()):
     dev = gen.device
+    init_fn, _ = _MIXERS[lspec.mixer]
     p = {"n1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-         "mixer": attention.attn_init(gen, cfg, lspec, lead=lead),
+         "mixer": init_fn(gen, cfg, lspec, lead=lead),
          "n2": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
          "ffn": ffn_init(gen, cfg, lspec, d_ff, lead=lead)}
     if cfg.post_norm:
@@ -104,14 +118,15 @@ def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
                 cache=None, cache_len=None, mode="train"):
     """One block; in prefill and decode mode ``cache`` (the block's) is
     updated in place."""
-    h = attention.attn_apply(p["mixer"], cfg, lspec, rmsnorm(p["n1"], x),
-                             positions=positions,
-                             cache=cache["mixer"] if cache else None,
-                             cache_len=cache_len, mode=mode)
+    _, apply_fn = _MIXERS[lspec.mixer]
+    h = apply_fn(p["mixer"], cfg, lspec, rmsnorm(p["n1"], x),
+                 positions=positions, cache=cache["mixer"] if cache else None,
+                 cache_len=cache_len, mode=mode)
     if cfg.post_norm:
         h = rmsnorm(p["pn1"], h)
     x = x + h
-    h = ffn_apply(p["ffn"], cfg, lspec, rmsnorm(p["n2"], x))
+    h = ffn_apply(p["ffn"], cfg, lspec, rmsnorm(p["n2"], x),
+                  cache=cache["ffn"] if cache else None, mode=mode)
     if cfg.post_norm:
         h = rmsnorm(p["pn2"], h)
     return x + h
@@ -120,9 +135,20 @@ def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
 def block_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
                      max_len: int, dtype: torch.dtype = torch.bfloat16, *,
                      device: torch.device, lead: Tuple[int, ...] = ()):
-    mix = attention.attn_cache_init(cfg, lspec, batch, max_len, dtype,
-                                    device=device, lead=lead)
-    return {"mixer": mix, "ffn": {}}
+    """A block's cache: K/V, ``{"h", "conv"}`` or ``{"state", "x_prev"}``
+    for the mixer, ``{"x_prev"}`` for ``rwkv_cm``.  K/V, ``conv`` and
+    ``x_prev`` in ``dtype``; the recurrent states in f32."""
+    kw = dict(device=device, lead=lead)
+    if lspec.mixer == "rglru":
+        mix = recurrent.rglru_cache_init(cfg, batch, dtype, **kw)
+    elif lspec.mixer == "rwkv6":
+        mix = recurrent.rwkv6_cache_init(cfg, batch, dtype, **kw)
+    else:
+        mix = attention.attn_cache_init(cfg, lspec, batch, max_len, dtype,
+                                        **kw)
+    ffn = (recurrent.rwkv_cm_cache_init(cfg, batch, dtype, **kw)
+           if lspec.ffn == "rwkv_cm" else {})
+    return {"mixer": mix, "ffn": ffn}
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +190,9 @@ def model_init(key: Union[int, torch.Generator], cfg: ArchConfig, *,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype: torch.dtype = torch.bfloat16, device=None):
-    """Decode/prefill cache tree mirroring the param layout (K/V in
-    ``dtype``, bf16 as in the reference)."""
+    """Decode/prefill cache tree mirroring the param layout (K/V, the
+    RG-LRU conv history and the RWKV token-shift inputs in ``dtype``, bf16
+    as in the reference; the recurrent states in f32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n_full = cfg.n_full_periods

@@ -35,7 +35,10 @@ MODULES = [
     "repro_torch.core.seq_sketch", "repro_torch.core.batched_sketch",
     "repro_torch.core.pc_sketch", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.flash_attention.ops",
-    "repro_torch.kernels.flash_attention.ref", "repro_torch.models",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.linear_scan", "repro_torch.kernels.linear_scan.ops",
+    "repro_torch.kernels.linear_scan.ref", "repro_torch.models",
+    "repro_torch.models.recurrent",
     "repro_torch.models.config", "repro_torch.models.layers",
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.lm", "repro_torch.models.convert",
@@ -114,20 +117,22 @@ print("refused")
 
 def test_model_entry_points_refuse_to_run_without_cuda():
     """The model stack's entry points, like the structures', take
-    ``device=None`` as the card and raise without one."""
+    ``device=None`` as the card and raise without one: for a dense and
+    both recurrent configs."""
     code = """
 import pytest
 from repro_torch import configs
 from repro_torch.launch.serve import DecodeExecutor
 from repro_torch.models import convert, init_cache, model_init
-cfg = configs.get_reduced("qwen2_0_5b")
-for make in (lambda: model_init(0, cfg),
-             lambda: model_init(0, cfg, device="cuda"),
-             lambda: init_cache(cfg, 2, 16),
-             lambda: DecodeExecutor(cfg),
-             lambda: convert.tree_from_numpy({"a": [1.0]})):
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make()
+for arch in ("qwen2_0_5b", "rwkv6_3b", "recurrentgemma_2b"):
+    cfg = configs.get_reduced(arch)
+    for make in (lambda: model_init(0, cfg),
+                 lambda: model_init(0, cfg, device="cuda"),
+                 lambda: init_cache(cfg, 2, 16),
+                 lambda: DecodeExecutor(cfg),
+                 lambda: convert.tree_from_numpy({"a": [1.0]})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 print("refused")
 """
     r = _run(code, CUDA_VISIBLE_DEVICES="")
@@ -148,7 +153,8 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
 def test_kernel_sources_ship_with_the_package():
     srcs = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
     assert srcs == ["flash_attention.cu", "heap_insert.cu", "heap_kmin.cu",
-                    "heap_sift.cu", "label_prop.cu", "sorted_merge.cu"]
+                    "heap_sift.cu", "label_prop.cu", "rglru_scan.cu",
+                    "rwkv6_scan.cu", "sorted_merge.cu"]
     for name in srcs:
         text = (PORT / "kernels" / "csrc" / name).read_text()
         assert "src/repro/kernels/" in text          # names what it replaces

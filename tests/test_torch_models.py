@@ -39,8 +39,7 @@ from repro_torch.models import transformer as tt
 
 DENSE = ("qwen2_0_5b", "yi_6b", "gemma2_2b")
 OUTSIDE = ("llama4_scout_17b_a16e", "deepseek_v2_lite_16b",
-           "llama_3_2_vision_11b", "recurrentgemma_2b", "rwkv6_3b",
-           "hubert_xlarge")
+           "llama_3_2_vision_11b", "hubert_xlarge")
 IMPLS = ("naive", "xla_chunked", "pallas")
 CPU = torch.device("cpu")
 
