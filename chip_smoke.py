@@ -78,19 +78,23 @@ each printing a line:
    exactness precondition, and a 100-batch replay through the kernel pass
    and the plain pass against ``SequentialSketch``.
 
-12. ``flash_attention`` kernel checks — the kernel against its plain
-   version (the kernel's own 64 x 64 tiles) on every case of the CPU tests
-   (``ATTN_CASES``: GQA, causal and not, windows narrower than a tile,
-   softcaps, ``q_offset``, ``kv_len < Skv``, ``hd_v != hd``, head dims 8
-   to 256) and at the two model shapes (Qwen2-0.5B's scoring, (4, 4,096,
-   14/2 heads, 64), causal; gemma2's, (2, 8,192, 8/4 heads, 256), window
-   4,096, cap 50), each in f32 and in bf16, within the reference's
-   tolerances (2e-5 f32, 2e-2 bf16; TF32 off); then at the main shape in
-   bf16 the kernel's ms (the CUDA-event method above, 10 launches a
-   window), the plain version's, SDPA's (``is_causal``, ``enable_gqa``:
-   the library yardstick, never called by the port) and the bound (the
-   unmasked pairs' FLOP over 989 TFLOP/s against q, k, v and o over
-   3.35 TB/s); the kernel's and the plain version's ms at gemma2's shape.
+12. ``flash_attention`` kernel checks — the kernels (bf16: tensor cores;
+   f32: CUDA cores) against their plain version tiled like the kernel
+   (``KERNEL_BLOCKS[dtype]``) on every case of the CPU tests and
+   the bf16 kernel's edges (``ATTN_CASES``: GQA, causal and not, windows
+   narrower than a tile, softcaps, ``q_offset``, ``kv_len < Skv``,
+   ``hd_v != hd``, head dims 8 to 256, sequences one off each tile edge)
+   and at the three model shapes (Qwen2-0.5B's scoring, (4, 4,096, 14/2
+   heads, 64), causal; gemma2's, (2, 8,192, 8/4 heads, 256), window
+   4,096, cap 50; RecurrentGemma's local layer, (1, 8,192, 10/1 heads,
+   256), window 2,048), each in f32 and in bf16, within the reference's
+   tolerances (2e-5 f32, 2e-2 bf16; TF32 off) and in bf16 each output
+   row within 2^-6 of its norm (``ATTN_ROW_TOL``); then at the three shapes
+   in bf16 the kernel's ms (the CUDA-event method above), the plain
+   version's and the bound (the unmasked pairs' FLOP over 989 TFLOP/s
+   against q, k, v and o over 3.35 TB/s), and at the main shape SDPA's
+   (``is_causal``, ``enable_gqa``: the library yardstick, never called by
+   the port).
 13. ``model`` — Qwen2-0.5B at full width (24 layers, 494 M parameters,
    random bf16 weights from ``--seed``): ``lm.loss_fn`` and
    ``model_apply(mode="train")`` with ``attention_impl="pallas"`` on
@@ -1692,6 +1696,10 @@ def sketch_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
 # the dense decoder: flash_attention and the model stack
 # ---------------------------------------------------------------------------
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:57
+# bf16 kernel against plain, row by row: ||got - want|| / ||want|| over
+# each output row, 4 times bf16's 2^-8 (tests/test_torch_flash_attention.py
+# ROW_TOL: a 64-key tile too many or too few at a long window edge fails it)
+ATTN_ROW_TOL = 2 ** -6
 BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
 # (B, Sq, Skv, H, K, hd, hd_v, causal, window, cap, q_offset, kv_len): the
 # CPU tests' cases (tests/test_torch_flash_attention.py), each run in f32
@@ -1712,6 +1720,20 @@ ATTN_CASES = [
     (2, 200, 200, 8, 4, 256, 256, True, 64, 50.0, 0, None),   # gemma2 heads
     (1, 130, 130, 4, 1, 80, 80, False, 0, 0.0, 0, None),      # hubert heads
     (1, 100, 100, 4, 2, 128, 128, True, 0, 0.0, 0, None),
+    # the bf16 kernel's tile edges (128 query rows, 64 KV slots) at hd 64
+    # and 256, head widths padded to an instance, hd_v != hd at MLA's
+    # widths, and rows with no unmasked key in their first visited tile
+    (1, 127, 127, 2, 1, 64, 64, True, 0, 0.0, 0, None),
+    (1, 128, 128, 2, 1, 64, 64, True, 0, 0.0, 0, None),
+    (1, 129, 129, 2, 1, 64, 64, True, 0, 0.0, 0, None),
+    (1, 129, 127, 2, 1, 64, 64, False, 0, 0.0, 0, None),
+    (1, 63, 63, 2, 1, 256, 256, True, 0, 50.0, 0, None),
+    (1, 64, 64, 2, 1, 256, 256, True, 0, 0.0, 0, None),
+    (1, 65, 65, 2, 1, 256, 256, True, 16, 0.0, 0, None),
+    (1, 129, 129, 2, 1, 256, 256, True, 0, 0.0, 0, None),
+    (2, 70, 70, 4, 2, 24, 24, True, 0, 0.0, 0, None),
+    (1, 150, 150, 2, 1, 192, 128, True, 0, 0.0, 0, None),
+    (1, 200, 264, 2, 1, 64, 64, True, 24, 30.0, 64, None),
 ]
 MODEL_ARCH = "qwen2_0_5b"      # serve.py's default --arch, full width
 MODEL_BATCH = 4                # scoring: 4 x 4,096 tokens
@@ -1723,6 +1745,7 @@ GEMMA_ARCH = "gemma2_2b"       # full width, 2 layers (one local, one full)
 GEMMA_LAYERS = 2
 GEMMA_SEQ = 8192               # past the 4,096 window
 GEMMA_BATCH = 2                # the attention phase's gemma2 shape
+RG_WINDOW = 2048               # configs/recurrentgemma_2b.py's local window
 LOGIT_TOL = 2e-2               # of max|y|, one layer in bf16 (see scoring)
 LOSS_TOL = 5e-3                # tests/test_models.py:164-165
 F32_LOGIT_TOL = 1e-4           # of max|logit|, f32 weights and activations
@@ -1778,7 +1801,8 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
     """``flash_attention`` (the kernel on CUDA tensors) against
     ``flash_attention_plain`` with the kernel's own tiles, on every case of
     the CPU tests and at the two model shapes, in f32 and in bf16, within
-    the reference's tolerances (atol = rtol = 2e-5 in f32, 2e-2 in bf16).
+    the reference's tolerances (atol = rtol = 2e-5 in f32, 2e-2 in bf16)
+    and, in bf16, each output row within ATTN_ROW_TOL of its norm.
     TF32 is off for the plain version's f32 products.  Then, at the main
     shape (Qwen2-0.5B's scoring forward, bf16): the kernel's ms, the plain
     version's (the model's 128-wide tiles), SDPA's as the library yardstick
@@ -1786,23 +1810,28 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
     gemma2's shape too (SDPA takes no softcap: no yardstick there)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.flash_attention.ops import kernel_blocks
+    from repro_torch.kernels.flash_attention.ops import KERNEL_BLOCKS
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    blocks = kernel_blocks() if dev.type == "cuda" else (64, 64)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     main = (MODEL_BATCH, main_seq, main_seq, 14, 2, 64, 64, True, 0, 0.0, 0,
             None)
     gemma = (GEMMA_BATCH, gemma_seq, gemma_seq, 8, 4, 256, 256, True, 4096,
              50.0, 0, None)
+    # RecurrentGemma's local layer: 10 query heads, one KV head of 256
+    rg = (1, gemma_seq, gemma_seq, 10, 1, 256, 256, True, RG_WINDOW, 0.0, 0,
+          None)
+    shapes = {"main": main, "gemma": gemma, "rg": rg}
     rec = {"checked": 0, "max_abs_err": 0.0,
-           "max_abs_err_by_dtype": {"float32": 0.0, "bfloat16": 0.0}}
+           "max_abs_err_by_dtype": {"float32": 0.0, "bfloat16": 0.0},
+           "max_row_err_bf16": 0.0}
     kept = {}
-    for case in ATTN_CASES + [main, gemma]:
+    for case in ATTN_CASES + list(shapes.values()):
         B, Sq, Skv, H, K, hd, hd_v, causal, window, cap, q_off, kv_len = case
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            blocks = KERNEL_BLOCKS[dt]
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
                        for s in ((B, Sq, H, hd), (B, Skv, K, hd),
                                  (B, Skv, K, hd_v)))
@@ -1823,21 +1852,40 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
             e = float(err.max())
             check(bad == 0, f"flash_attention {case} {dname}: {bad} "
                             f"elements outside the tolerance, max_abs_err {e}")
+            if dname == "bfloat16":
+                row = float(((g - w_).norm(dim=-1) / w_.norm(dim=-1)).max())
+                check(row <= ATTN_ROW_TOL, f"flash_attention {case} bf16: "
+                      f"a row {row} off in norm (limit {ATTN_ROW_TOL})")
+                rec["max_row_err_bf16"] = max(rec["max_row_err_bf16"], row)
             rec["max_abs_err"] = max(rec["max_abs_err"], e)
             rec["max_abs_err_by_dtype"][dname] = max(
                 rec["max_abs_err_by_dtype"][dname], e)
             rec["checked"] += 1
-            if case in (main, gemma) and dname == "bfloat16":
-                kept["main" if case is main else "gemma"] = (q, k, v, kw)
+            for which, shape in shapes.items():
+                if case is shape and dname == "bfloat16":
+                    kept[which] = (q, k, v, kw)
             del q, k, v, got, want, g, w_, err
+    if dev.type == "cuda":
+        # a bf16 layout the kernel does not take raises before any launch
+        q = torch.zeros((1, 32, 2, 68), dtype=torch.bfloat16, device=dev)
+        before = flash_attention.launches
+        try:
+            flash_attention(q[..., :64], q[..., :64], q[..., :64])
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and flash_attention.launches == before,
+              "flash_attention took a bf16 head stride of 68 elements "
+              "(not 16-byte aligned)")
     if not timing:
         return rec
     F = torch.nn.functional
-    for which, n, n_plain in (("main", 10, 2), ("gemma", 5, 1)):
+    for which, n, n_plain in (("main", 30, 2), ("gemma", 10, 1),
+                              ("rg", 10, 1)):
         q, k, v, kw = kept[which]
         B, Sq, H, hd = q.shape
         _, Skv, K, hd_v = v.shape
-        pre = "" if which == "main" else "gemma_"
+        pre = "" if which == "main" else which + "_"
         rec[pre + "ms"] = _per_call_ms(
             torch, lambda: flash_attention(q, k, v, **kw), n, 5, hold=True)
         rec[pre + "plain_ms"] = _per_call_ms(
@@ -1864,6 +1912,38 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
                 hold=True)
             rec["library_err"] = e
     return rec
+
+
+def ptxas_report(log: str, cufilt: str):
+    """(source, kernel, registers, spill store bytes, spill load bytes) of
+    each entry function that ``ptxas -v`` reported in ``build.log``, its
+    name demangled by the toolkit's ``cu++filt`` (at ``cufilt``) without
+    its arguments or anonymous namespace."""
+    import re
+
+    rows, src, name, spill = [], None, None, (0, 0)
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln.split()[1]
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([src, name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    names = subprocess.run(
+        [cufilt, "-p"], input="\n".join(r[1] for r in rows),
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    for r, n in zip(rows, names):
+        for drop in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+            n = n.replace(drop, "")
+        r[1] = n.removeprefix("void ")
+    return rows
 
 
 def _model_cfg(arch, reduced, **kw):
@@ -2042,10 +2122,12 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
       F32_LOGIT_TOL (of max|logit| over those positions);
     - bf16 end to end: the kernel path's error against that f32 forward
       at most NOISE_RATIO times the plain path's own (the bf16 drift of
-      both, and between them, is printed).  For the 32-layer random RWKV-6
-      both sit ~0.76 of max|logit| off (the group norm's flips at bf16
-      rounding), so this check holds nothing there: the per-layer check
-      and the loss carry its bf16 path."""
+      both, and between them, is printed), over the positions from
+      :func:`head_positions` on.  For the 32-layer random RWKV-6 both
+      paths sit ~0.76 of max|logit| off over the whole sequence (the group
+      norm's flips at bf16 rounding, at its first tokens), so a check over
+      every position held nothing there; the first positions' errors of
+      both paths are printed apart."""
     from repro_torch.models import lm, transformer
 
     pallas = cfg.with_(attention_impl="pallas")
@@ -2091,12 +2173,16 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
     with plain_scans():
         ref, _ = transformer.model_apply(params, plain, batch)
         truth, _ = transformer.model_apply(p32, plain, batch)
+    head = head_positions(cfg)
     bf16_vs_plain, scale = _logit_err(logits, ref)
-    kernel_noise = _logit_err(logits, truth)[0]
-    plain_noise = _logit_err(ref, truth)[0]
+    kernel_noise = _logit_err(logits[:, head:], truth[:, head:])[0]
+    plain_noise = _logit_err(ref[:, head:], truth[:, head:])[0]
+    head_bf16 = None
+    if head:            # (kernel path, plain path) at the first positions
+        head_bf16 = (_logit_err(logits[:, :head], truth[:, :head])[0],
+                     _logit_err(ref[:, :head], truth[:, :head])[0])
     del ref, logits
     got32, _ = transformer.model_apply(p32, pallas, batch)
-    head = head_positions(cfg)
     f32_err = _logit_err(got32[:, head:], truth[:, head:])[0]
     head_err = head_noise = head_tol = f32_noise = None
     if head:
@@ -2121,12 +2207,13 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
               f"plain f32 paths: {head_noise:.3e})")
     check(kernel_noise <= NOISE_RATIO * plain_noise,
           f"{name}: bf16 kernel path {kernel_noise:.3e} off the f32 "
-          f"forward, {NOISE_RATIO}x the plain path's {plain_noise:.3e}")
+          f"forward at positions {head}.., over {NOISE_RATIO}x the plain "
+          f"path's {plain_noise:.3e}")
     return {"launches": launches, "per_forward": per_fwd,
             "loss": loss, "plain_loss": ref_loss, "layer_err": layer_err,
             "f32_err": f32_err, "f32_noise": f32_noise, "head": head,
             "head_err": head_err, "head_noise": head_noise,
-            "head_tol": head_tol,
+            "head_tol": head_tol, "head_bf16": head_bf16,
             "bf16_vs_plain": bf16_vs_plain,
             "kernel_noise": kernel_noise, "plain_noise": plain_noise,
             "max_logit": scale, "loss_s": t_loss, "forward_s": t_fwd,
@@ -2728,10 +2815,12 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
-        report = [ln.strip() for ln in (lib.parent / "build.log")
-                  .read_text().splitlines() if "registers" in ln]
-        out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas: "
-            + " | ".join(report))
+        log = (lib.parent / "build.log").read_text()
+        cufilt = str(Path(_build.nvcc_path()).parent / "cu++filt")
+        out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas "
+            "(registers, spill stores / loads in bytes): " + "; ".join(
+                f"{src} {n} {r} regs, spills {st} / {ld}"
+                for src, n, r, st, ld in ptxas_report(log, cufilt)))
 
     extra = n_replay * C_MAX + 2
     total = n_keys + threads * ops + extra
@@ -2891,20 +2980,25 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     if timing:
         times["flash_attention"] = fa
     out(f"kernels: flash_attention == plain on {fa['checked']} launches "
-        f"({len(ATTN_CASES) + 2} cases x f32, bf16; max_abs_err "
+        f"({len(ATTN_CASES) + 3} cases x f32, bf16; max_abs_err "
         f"{fa['max_abs_err_by_dtype']['float32']} f32, "
         f"{fa['max_abs_err_by_dtype']['bfloat16']} bf16; tolerance atol = "
-        f"rtol = 2e-5 f32, 2e-2 bf16; {time.perf_counter() - t0:.1f} s); "
+        f"rtol = 2e-5 f32, 2e-2 bf16; bf16 rows' relative norm error "
+        f"{fa['max_row_err_bf16']} (limit {ATTN_ROW_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s); "
         + ("timing not measured" if not timing else
            f"ms {fa['ms']:.6f} at {fa['shape']} bf16 causal, plain_ms "
            f"{fa['plain_ms']:.6f}, bound_ms {fa['bound_ms']:.6f} "
            f"({fa['bound_by']}: {fa['flop']:.4e} FLOP of the unmasked pairs "
            f"/ 989 TFLOP/s bf16 vs {fa['bytes']} bytes / 3.35 TB/s), "
            f"library_ms {fa['library_ms']:.6f} (SDPA is_causal, "
-           f"enable_gqa; |SDPA - kernel| {fa['library_err']}); gemma2 "
-           f"{fa['gemma_shape']}: ms {fa['gemma_ms']:.6f}, plain_ms "
-           f"{fa['gemma_plain_ms']:.6f}, bound_ms "
-           f"{fa['gemma_bound_ms']:.6f} ({fa['gemma_bound_by']})"))
+           f"enable_gqa; |SDPA - kernel| {fa['library_err']}); " + "; ".join(
+               f"{label} {fa[p + 'shape']}: ms {fa[p + 'ms']:.6f}, plain_ms "
+               f"{fa[p + 'plain_ms']:.6f}, bound_ms "
+               f"{fa[p + 'bound_ms']:.6f} ({fa[p + 'bound_by']}: "
+               f"{fa[p + 'flop']:.4e} FLOP)"
+               for label, p in (("gemma2", "gemma_"),
+                                ("recurrentgemma", "rg_")))))
 
     serving = dict(serve_batch=serve_batch, prompt=serve_prompt,
                    new=serve_new)
@@ -2955,7 +3049,12 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s['head_noise']:.3e})") + f"; bf16 logits "
             f"{s['bf16_vs_plain']:.3e} of max|logit| {s['max_logit']:.3f} "
             f"off the plain path's, {s['kernel_noise']:.3e} off the f32 "
-            f"forward (plain path {s['plain_noise']:.3e}){extra}; "
+            f"forward at positions {s['head']}.. (plain path "
+            f"{s['plain_noise']:.3e}, limit {NOISE_RATIO}x)" + (
+                "" if not s["head"] else
+                f", at positions 0-{s['head'] - 1} {s['head_bf16'][0]:.3e} "
+                f"(plain path {s['head_bf16'][1]:.3e}; not held)")
+            + f"{extra}; "
             f"max_memory_allocated {s.get('max_memory_allocated', 'n/a')} "
             f"({s['seconds']:.1f} s)")
         pr = s["profile"]
@@ -3030,7 +3129,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         if name == "flash_attention":
             rec.update({k: t.get(k) for k in (
                 "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
-                "gemma_bound_ms")})
+                "gemma_bound_ms", "rg_shape", "rg_ms", "rg_plain_ms",
+                "rg_bound_ms")})
         if name in ("rwkv6_scan", "rglru_scan"):
             p = paths[name][0]
             rec["shape"] = t.get("shape")

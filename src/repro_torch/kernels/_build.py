@@ -80,9 +80,6 @@ SIGNATURES = {
     # q_offset, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
     + [_F, _F] + [_I] * 5 + [_P],
-    "flash_attention_block_q": [],
-    "flash_attention_block_k": [],
-    "flash_attention_max_head": [],
     # r, k, v, w, u, state0, y, S_T, B, S, H, hd, the (batch, seq, head)
     # strides of r, k, v and w, dtype, stream
     "rwkv6_scan_launch": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],

@@ -1,23 +1,28 @@
-"""Flash attention: the hand-written CUDA kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""Flash attention: the hand-written CUDA kernels
+(``csrc/flash_attention.cu``) and their plain PyTorch version.
 
 Blockwise online-softmax attention in the model's layout, q ``(B, Sq, H,
 hd)``, k ``(B, Skv, K, hd)``, v ``(B, Skv, K, hd_v)`` → ``(B, Sq, H,
 hd_v)`` in q's dtype, with GQA (head h reads KV head ``h // (H // K)``),
 a causal mask, a sliding window (``k_pos > q_pos - window``), a logit
 softcap ``cap·tanh(s/cap)`` applied before the mask, ``kv_len`` (the valid
-KV prefix) and ``q_offset`` (the absolute position of q's first row).  The
-math is f32 from f32 or bf16 inputs, with the finite ``NEG_INF = -1e30``
-sentinel and the ``max(l, 1e-30)`` clamp of the reference's Pallas kernel
-(``src/repro/kernels/flash_attention/kernel.py``): p stays f32 for p·v.
+KV prefix) and ``q_offset`` (the absolute position of q's first row),
+with the finite ``NEG_INF = -1e30`` sentinel and the ``max(l, 1e-30)``
+clamp of the reference's Pallas kernel
+(``src/repro/kernels/flash_attention/kernel.py``).  The plain version's
+math is f32 from f32 or bf16 inputs (p stays f32 for p·v).
 
 :func:`flash_attention` is the one entry point; it picks its path from
-q's device: a CUDA tensor launches the kernel (one launch for all batches
+q's device: a CUDA tensor launches a kernel (one launch for all batches
 and heads) or raises, a CPU tensor runs :func:`flash_attention_plain`.
+On the card the dtype picks the kernel: bf16 runs on the tensor cores
+(``wgmma``, f32 sums, P rounded to bf16 before P·V; head widths padded to
+the instance of 64, 128 or 256, multiples of 8 and 16-byte aligned
+layouts only), f32 on the CUDA cores (f32 throughout, the checks' path).
 ``flash_attention.launches`` counts kernel launches.  ``block_q`` /
 ``block_k`` are the plain version's tiles (the reference wrapper's
-arguments); the kernel tiles by its own compile-time sizes
-(:func:`kernel_blocks`).  Both visit KV tiles by the reference's skip
+arguments); the kernels tile by their own compile-time sizes
+(``KERNEL_BLOCKS``).  Both visit KV tiles by the reference's skip
 rule, so they agree to rounding wherever a row has an unmasked key.
 """
 from __future__ import annotations
@@ -102,22 +107,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
-_limits = {}
-
-
-def kernel_blocks() -> Tuple[int, int]:
-    """(query rows, KV slots) of the built kernel's tiles."""
-    if not _limits:
-        lib = _build.library()
-        _limits["blocks"] = (lib.flash_attention_block_q(),
-                             lib.flash_attention_block_k())
-        _limits["head"] = lib.flash_attention_max_head()
-    return _limits["blocks"]
+MAX_HEAD = 256                 # the kernel's widest hd and hd_v
+# (query rows a CTA, KV slots a tile) of each dtype's kernel: the plain
+# version tiled alike visits the same KV tiles
+KERNEL_BLOCKS = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 
 def _strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
     if t.stride(3) != 1:
         raise ValueError(f"{name} must be contiguous in its last dim")
+    if t.dtype == torch.bfloat16:
+        # the bf16 kernel moves 16-byte chunks (cp.async): 8 elements
+        bad = [d for d in range(3) if t.shape[d] > 1 and t.stride(d) % 8]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{name}: the bfloat16 kernel needs a 16-byte aligned base "
+                f"and strides of a multiple of 8 elements, got address "
+                f"{t.data_ptr():#x} and strides {tuple(t.stride())}")
     return t.stride(0), t.stride(1), t.stride(2)
 
 
@@ -130,7 +136,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_attention_plain`).  On CUDA tensors: one kernel launch on
     the current stream, no host sync; q, k and v of one dtype (f32 or
     bf16), each contiguous in its last dim (other strides are taken as
-    they are), ``hd`` and ``hd_v`` at most 256."""
+    they are), ``hd`` and ``hd_v`` at most 256.  In bf16 the head widths
+    are multiples of 8 and each base pointer and stride 16-byte aligned;
+    any other layout raises ``ValueError`` (no other path takes it)."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, cap=cap,
@@ -155,10 +163,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not (B, Sq, H, hd), "
                          f"(B, Skv, K, hd), (B, Skv, K, hd_v) with K | H")
-    kernel_blocks()
-    if not (0 < hd <= _limits["head"] and 0 < hd_v <= _limits["head"]):
-        raise ValueError(f"flash_attention takes head dims up to "
-                         f"{_limits['head']}, got {hd} and {hd_v}")
+    if (not (0 < hd <= MAX_HEAD and 0 < hd_v <= MAX_HEAD)
+            or q.dtype == torch.bfloat16 and (hd % 8 or hd_v % 8)):
+        raise ValueError(
+            f"flash_attention takes head dims up to {MAX_HEAD} (in "
+            f"bfloat16, multiples of 8), got {hd} and {hd_v} in {q.dtype}")
     kv_len = Skv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= Skv or q_offset < 0 or window < 0:
         raise ValueError(f"need 0 <= kv_len <= Skv, q_offset >= 0 and "
@@ -180,4 +189,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_plain", "kernel_blocks"]
+__all__ = ["KERNEL_BLOCKS", "flash_attention", "flash_attention_plain"]

@@ -9,7 +9,9 @@ of the reference's blockwise scan (:func:`blockwise_attention`),
 ``"naive"`` the O(S^2) oracle.  None of them is a fallback for another.
 Prefill attends with :func:`blockwise_attention` and decode (Sq == 1) with
 :func:`decode_attention` against the cache, whatever ``attention_impl``
-says, as in the reference.
+says, as in the reference.  A local layer's decode attends the forward's
+window once its ring is full, where the reference attends one position
+more (:func:`decode_attention`).
 
 Caches are updated in place (the reference returns new arrays): prefill
 writes the prompt's K/V into the zeroed cache, or the last ``Smax`` of
@@ -155,13 +157,17 @@ def naive_attention(q, k, v, *, causal, window=0, scale, cap=0.0,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0):
+def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0,
+                     stale: Optional[int] = None):
     """One-token attention against a (B,Smax,K,hd) cache. q: (B,1,H,hd).
 
-    ``n_valid``: number of written cache slots.  Local-attention layers use
-    a ring cache of size window+1 and every written slot is attended, as in
-    the reference: once the ring is full the step sees window + 1
-    positions, where the full-sequence forward sees window (ROADMAP C).
+    ``n_valid``: number of written cache slots.  ``stale``: a written slot
+    not to attend.  A local layer's ring cache holds window + 1 slots;
+    once it is full, the slot of the oldest position (cache_len - window)
+    is ``stale``, so the step attends the ``window`` positions the
+    full-sequence forward attends (``k_pos > q_pos - window``).  (The
+    reference attends every written slot: window + 1 positions once its
+    ring is full, one more than its own forward.)
     """
     B, _, H, hd = q.shape
     _, Smax, K, _ = k_cache.shape
@@ -170,7 +176,10 @@ def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0):
     qr = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgh,bckh->bkgc", qr.float(), k_cache.float()) * scale
     s = softcap(s, cap)
-    mask = torch.arange(Smax, device=q.device) < n_valid
+    slots = torch.arange(Smax, device=q.device)
+    mask = slots < n_valid
+    if stale is not None:
+        mask = mask & (slots != stale)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckh->bkgh", p.to(v_cache.dtype).float(),
@@ -237,8 +246,12 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         slot = cache_len % Smax                  # ring for local layers
         ck[:, slot] = k[:, 0]
         cv[:, slot] = v[:, 0]
+        # a full ring of window + 1 slots also holds position
+        # cache_len - window, outside the window: its slot is the next one
+        stale = (cache_len + 1) % Smax if window and cache_len >= window \
+            else None
         o = decode_attention(q, ck, cv, min(cache_len + 1, Smax),
-                             scale=scale, cap=cfg.attn_softcap)
+                             scale=scale, cap=cfg.attn_softcap, stale=stale)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 

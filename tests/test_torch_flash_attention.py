@@ -34,6 +34,12 @@ ATTN_CASES = [
     (1, 33, 65, 2, 1, 8, True, 0, 0.0, "float32"),      # odd sizes → pad
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the bf16 kernel against its plain version, row by row: ||got - want|| /
+# ||want|| over each output row's hd_v values, at 4 times bf16's 2^-8 (the
+# P and output roundings give ~2^-9).  A long row's output is small
+# (~sqrt(e / n) at n keys, 0.026 at 4,096) against TOL's 2e-2 atol; a tile
+# of 64 keys too many or too few there moves it by ~8 / sqrt(n), 12 %.
+ROW_TOL = 2 ** -6
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,6 +55,12 @@ def _inputs(rng, B, Sq, Skv, H, K, hd, dtype, hd_v=None):
     jx = [jnp.asarray(a, JNP[dtype]) for a in arrs]
     tx = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrs]
     return jx, tx
+
+
+def _row_err(got, want):
+    """The largest ||got - want|| / ||want|| over the output rows."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
 
 
 def _close(got, want, tol):
@@ -148,6 +160,45 @@ def test_plain_window_first_tile_fully_masked(q_offset, rng):
     _close(got, jax_ref(jq, jk, jv, **kw), 2e-5)
 
 
+@pytest.mark.parametrize("layout", ["aligned", "stride", "base"])
+def test_bf16_layout_check(layout):
+    """The bf16 kernel's layout rule, checked before any launch: each base
+    pointer 16-byte aligned and each stride a multiple of 8 elements.
+    The f32 kernel takes the same views."""
+    width, lo = {"aligned": (72, 0), "stride": (70, 0),
+                 "base": (72, 1)}[layout]
+    for dt in (torch.bfloat16, torch.float32):
+        view = torch.zeros((2, 16, 4, width), dtype=dt)[..., lo:lo + 64]
+        want = (16 * 4 * width, 4 * width, width)
+        if layout == "aligned" or dt == torch.float32:
+            assert fa_pkg.ops._strides(view, "q") == want
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fa_pkg.ops._strides(view, "q")
+
+
+@pytest.mark.parametrize("window,cap", [(4096, 50.0), (2048, 0.0)])
+@pytest.mark.parametrize("off", [-64, 64])
+def test_row_check_rejects_a_tile_off_at_a_long_window_edge(window, cap,
+                                                             off, rng):
+    """ROW_TOL, the bf16 kernel's row check, fails every row of an output
+    whose window admits one 64-key tile too many or too few at gemma2's
+    (4,096, softcap 50) and RecurrentGemma's (2,048) window, hd 256; the
+    correct output, rounded to bf16, is within a quarter of it of the f32
+    math on the same inputs."""
+    q_offset, Sq, H, hd = window + 64, 64, 2, 256
+    _, (q, k, v) = _inputs(rng, 1, Sq, q_offset + Sq, H, 1, hd, "bfloat16")
+    kw = dict(causal=True, cap=cap, q_offset=q_offset, block_q=128,
+              block_k=64)
+    want = flash_attention_plain(q, k, v, window=window, **kw)
+    wrong = flash_attention_plain(q, k, v, window=window + off, **kw)
+    exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                  window=window, **kw)
+    assert _row_err(want, exact) <= ROW_TOL / 4
+    g, w = wrong.float(), want.float()
+    assert float(((g - w).norm(dim=-1) / w.norm(dim=-1)).min()) > ROW_TOL
+
+
 def test_wrapper_is_the_package_entry_point():
     assert fa_pkg.flash_attention is flash_attention
     assert fa_pkg.flash_attention_plain is flash_attention_plain
@@ -164,26 +215,72 @@ def cuda():
     return torch.device("cuda")
 
 
-GPU_CASES = ATTN_CASES + [
+# (B, Sq, Skv, H, K, hd, hd_v, causal, window, cap, q_offset, dtype): the
+# CPU cases, then the bf16 kernel's edges — sequences one off its tiles
+# (128 query rows, 64 KV slots) at hd 64 and 256, head widths padded to
+# an instance (8, 24, 80), MLA's widths (hd 192, hd_v 128), and a window
+# narrower than a tile with q_offset, where rows find no unmasked key in
+# their first visited tile
+GPU_CASES = [c[:6] + (c[5],) + c[6:9] + (0, c[9]) for c in ATTN_CASES + [
     (1, 48, 48, 4, 2, 16, True, 0, 0.0, "float32"),
     (2, 200, 200, 8, 4, 256, True, 64, 50.0, "bfloat16"),   # gemma2 heads
     (1, 130, 130, 4, 1, 80, False, 0, 0.0, "float32"),      # hubert heads
     (1, 100, 100, 4, 2, 128, True, 0, 0.0, "bfloat16"),
+]] + [
+    (1, 127, 127, 2, 1, 64, 64, True, 0, 0.0, 0, "bfloat16"),
+    (1, 128, 128, 2, 1, 64, 64, True, 0, 0.0, 0, "bfloat16"),
+    (1, 129, 129, 2, 1, 64, 64, True, 0, 0.0, 0, "bfloat16"),
+    (1, 129, 127, 2, 1, 64, 64, False, 0, 0.0, 0, "bfloat16"),
+    (1, 63, 63, 2, 1, 256, 256, True, 0, 50.0, 0, "bfloat16"),
+    (1, 64, 64, 2, 1, 256, 256, True, 0, 0.0, 0, "bfloat16"),
+    (1, 65, 65, 2, 1, 256, 256, True, 16, 0.0, 0, "bfloat16"),
+    (1, 129, 129, 2, 1, 256, 256, True, 0, 0.0, 0, "bfloat16"),
+    (2, 40, 40, 4, 2, 8, 8, True, 0, 0.0, 0, "bfloat16"),
+    (2, 70, 70, 4, 2, 24, 24, True, 0, 0.0, 0, "bfloat16"),
+    (1, 130, 130, 4, 1, 80, 80, False, 0, 0.0, 0, "bfloat16"),
+    (1, 150, 150, 2, 1, 192, 128, True, 0, 0.0, 0, "bfloat16"),
+    (1, 200, 264, 2, 1, 64, 64, True, 24, 30.0, 64, "bfloat16"),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "B,Sq,Skv,H,K,hd,causal,window,cap,dtype", GPU_CASES)
-def test_cuda_kernel_equals_plain_version(cuda, B, Sq, Skv, H, K, hd,
-                                          causal, window, cap, dtype, rng):
-    _, (q, k, v) = _inputs(rng, B, Sq, Skv, H, K, hd, dtype)
+    "B,Sq,Skv,H,K,hd,hd_v,causal,window,cap,q_offset,dtype", GPU_CASES)
+def test_cuda_kernel_equals_plain_version(cuda, B, Sq, Skv, H, K, hd, hd_v,
+                                          causal, window, cap, q_offset,
+                                          dtype, rng):
+    """The kernel of ``dtype`` against the plain version tiled like it
+    (``KERNEL_BLOCKS[dtype]``), element by element and, in bf16, row by
+    row (ROW_TOL)."""
+    _, (q, k, v) = _inputs(rng, B, Sq, Skv, H, K, hd, dtype, hd_v=hd_v)
     q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
-    bq, bk = fa_pkg.ops.kernel_blocks()
-    kw = dict(causal=causal, window=window, cap=cap)
+    bq, bk = fa_pkg.ops.KERNEL_BLOCKS[TORCH[dtype]]
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
     before = flash_attention.launches
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
     want = flash_attention_plain(q, k, v, block_q=bq, block_k=bk, **kw)
     _close(got.cpu(), want.cpu(), TOL[dtype])
+    if dtype == "bfloat16":
+        assert _row_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_misaligned_layout_raises(cuda, rng):
+    """The bf16 kernel moves 16-byte chunks: a stride that is not a
+    multiple of 8 elements, or a base that is not 16-byte aligned, raises,
+    and nothing is launched."""
+    _, (q, k, v) = _inputs(rng, 1, 32, 32, 2, 1, 64, "bfloat16")
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    wide = torch.zeros((1, 32, 2, 68), dtype=torch.bfloat16, device=cuda)
+    wide[..., :64] = q
+    odd = torch.zeros((1, 32, 1, 65), dtype=torch.bfloat16, device=cuda)
+    odd[..., 1:] = k
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(wide[..., :64], k, v)     # head stride 68
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, odd[..., 1:], v)       # base 2 bytes off
+    assert flash_attention.launches == before

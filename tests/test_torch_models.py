@@ -179,17 +179,71 @@ def test_count_params_equals_reference(arch):
 # ---------------------------------------------------------------------------
 # prefill and decode
 # ---------------------------------------------------------------------------
+def local_window(cfg):
+    """The narrowest local-attention window of ``cfg`` (0: none)."""
+    return min((s.window for s in cfg.period if s.mixer == "local"),
+               default=0)
+
+
+def jax_past_the_window(cfg, params, seq, fresh):
+    """The JAX reference for a decode step that finds a local layer's ring
+    full, where the reference's decode attends every slot of its window + 1
+    ring, one position more than its own full-sequence forward, and the
+    port's decode the forward's window.  A function of a decode position
+    ``pos`` (``seq[:, pos]`` the token fed there): None before ``cfg``'s
+    local ring is full, else (the JAX full-sequence forward's logits at
+    ``pos``, the cache of the JAX prefill over ``seq[:, :pos + 1]`` from
+    ``fresh()``: the layers after a local one see the forward's hidden
+    states)."""
+    window = local_window(cfg)
+    if not window or seq.shape[1] <= window:
+        return lambda pos: None
+    fwd, _ = jt.model_apply(params, cfg, {"tokens": jnp.asarray(seq)})
+    prefill = jlm.make_prefill(cfg)
+
+    def at(pos):
+        if pos < window:
+            return None
+        _, cache = prefill(params, {"tokens": jnp.asarray(seq[:, :pos + 1])},
+                           fresh())
+        return fwd[:, pos], cache
+
+    return at
+
+
+def assert_greedy(tokens, logits, tol):
+    """``tokens`` (B,) equal the argmax of ``logits`` (B, vocab) in every
+    row whose top-2 margin exceeds 2 ``tol`` of max|logit|: there any
+    logits within ``tol`` of max|logit| of these have the same argmax."""
+    want = np.asarray(logits, np.float32)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol * np.abs(want).max()
+    assert clear.any()
+    np.testing.assert_array_equal(np.asarray(tokens)[clear],
+                                  want.argmax(-1)[clear])
+
+
 def _serve_steps(arch, prompt, n_steps, dtype):
     """Prefill ``prompt`` then decode ``n_steps`` seeded tokens in both
     packages; yields (what, port logits, jax logits, port cache, jax
     cache) after each step, the port's cache (updated in place) as a
-    numpy copy."""
+    numpy copy.  A decode step at a position at or past a local layer's
+    window finds that layer's ring full, where the reference's decode
+    attends one position more than its forward: from there on the jax
+    logits are the JAX full-sequence forward's at that position and the
+    jax cache the JAX prefill's over the tokens so far (the layers after
+    a local one see the forward's hidden states)."""
     jc, tc = _cfgs(arch)
     max_len = 24
     params = _jax_params(arch)
-    jcache = jt.init_cache(jc, 2, max_len)
+
+    def fresh():
+        c = jt.init_cache(jc, 2, max_len)
+        return _f32(c) if dtype == "float32" else c
+
+    jcache = fresh()
     if dtype == "float32":
-        params, jcache = _f32(params), _f32(jcache)
+        params = _f32(params)
     tp = _port(params, tc)
     tcache = tt.init_cache(tc, 2, max_len, dtype=getattr(torch, dtype),
                            device=CPU)
@@ -200,12 +254,23 @@ def _serve_steps(arch, prompt, n_steps, dtype):
                                       tcache)
     yield "prefill", tl, jl, convert.tree_to_numpy(tcache), jcache
     feed = _tokens(6, (n_steps, 2, 1), jc.vocab)
+    past = jax_past_the_window(
+        jc, params, np.concatenate([toks] + list(feed), axis=1), fresh)
     for t in range(n_steps):
-        jn, jl, jcache = jlm.make_decode_step(jc)(
-            params, jcache, jnp.int32(prompt + t), jnp.asarray(feed[t]))
+        pos = prompt + t
         tn, tl, tcache = tlm.make_decode_step(tc)(
-            tp, tcache, prompt + t, torch.from_numpy(feed[t]))
+            tp, tcache, pos, torch.from_numpy(feed[t]))
         assert tn.dtype == torch.int32
+        ref = past(pos)
+        if ref is not None:
+            jl, jcache = ref
+            if dtype == "float32":
+                assert_greedy(tn.numpy(), jl, 1e-4)
+            yield (f"decode {t} (JAX forward)", tl, jl,
+                   convert.tree_to_numpy(tcache), jcache)
+            continue
+        jn, jl, jcache = jlm.make_decode_step(jc)(
+            params, jcache, jnp.int32(pos), jnp.asarray(feed[t]))
         if dtype == "float32":
             np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         yield f"decode {t}", tl, jl, convert.tree_to_numpy(tcache), jcache
@@ -239,9 +304,39 @@ def test_prefill_and_decode_match_jax_at_bf16(arch, prompt):
         _caches_close(tcache, jcache, atol=2 * 2 ** -5, rtol=2 * 2 ** -8)
 
 
+@pytest.mark.parametrize("max_len", [12, 40])
+def test_local_decode_attends_the_forward_window(max_len):
+    """A local layer (window 16) decoded token by token equals its
+    full-sequence forward at every position, in f32: with a cache shorter
+    than the window (12 slots) and with a ring of window + 1 = 17 slots
+    that wraps (40 tokens), where the full ring's oldest slot is masked."""
+    from repro_torch.models import attention
+
+    _, tc = _cfgs("gemma2_2b")
+    lspec = tc.period[0]
+    assert lspec.mixer == "local" and lspec.window == 16
+    gen = torch.Generator().manual_seed(3)
+    p = jax.tree.map(lambda t: t.float(),
+                     attention.attn_init(gen, tc, lspec))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, max_len, tc.d_model)).astype(np.float32))
+    fwd = attention.attn_apply(p, tc, lspec, x,
+                               positions=torch.arange(max_len))
+    cache = attention.attn_cache_init(tc, lspec, 2, max_len,
+                                      dtype=torch.float32, device=CPU)
+    assert cache["k"].shape[1] == min(max_len, 17)
+    for t in range(max_len):
+        y = attention.attn_apply(p, tc, lspec, x[:, t:t + 1],
+                                 positions=torch.tensor([t]), cache=cache,
+                                 cache_len=t, mode="decode")
+        assert _rel(y[:, 0], fwd[:, t]) < 1e-5, t
+
+
 def test_decode_continues_from_a_carried_jax_cache():
     """The cache carry: the JAX prefill's cache, carried into the port,
-    decodes to the JAX decode step's logits and cache."""
+    decodes, its local ring being full (position 20 of a window of 16),
+    to the logits of the JAX full-sequence forward at that position and
+    the cache of the JAX prefill over the 21 tokens."""
     jc, tc = _cfgs("gemma2_2b")
     params = _f32(_jax_params("gemma2_2b"))
     toks = _tokens(9, (2, 20), jc.vocab)
@@ -250,11 +345,13 @@ def test_decode_continues_from_a_carried_jax_cache():
     tcache = convert.cache_from_numpy(jax.tree.map(np.asarray, jcache), tc,
                                       device=CPU)
     last = _tokens(10, (2, 1), jc.vocab)
-    _, jl, jcache = jlm.make_decode_step(jc)(params, jcache, jnp.int32(20),
-                                             jnp.asarray(last))
-    _, tl, tcache = tlm.make_decode_step(tc)(_port(params, tc), tcache, 20,
-                                             torch.from_numpy(last))
+    tn, tl, tcache = tlm.make_decode_step(tc)(_port(params, tc), tcache,
+                                              20, torch.from_numpy(last))
+    jl, jcache = jax_past_the_window(
+        jc, params, np.concatenate([toks, last], axis=1),
+        lambda: _f32(jt.init_cache(jc, 2, 24)))(20)
     assert _rel(tl, jl) < 1e-4
+    assert_greedy(tn.numpy(), jl, 1e-4)
     _caches_close(convert.tree_to_numpy(tcache), jcache, atol=1e-5,
                   rtol=1e-5)
 

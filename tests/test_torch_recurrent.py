@@ -27,10 +27,13 @@ Tolerances, each with its reason:
   ``tests/test_models.py:164-165``; logits and each cache tensor within
   3e-2 of their max|value| (bf16 rounds at other places in the two
   frameworks and the recurrent states carry it forward; ~2e-2 measured).
-- A decode step that finds a local layer's ring full attends every
-  ring slot, window + 1 positions, as the reference's does (its forward
-  attends window: ROADMAP C); the port's decode is held to the
-  reference's decode step there like everywhere else.
+- A decode step that finds a local layer's ring full attends the
+  forward's window, where the reference's decode attends every ring slot,
+  window + 1 positions: there the port's decode logits are held to the
+  JAX full-sequence forward (f32: 1e-4 of max|logit|, the forward holds
+  no bf16 cache rounding) and its caches to the JAX prefill's over the
+  tokens so far (the layers after the local one see the forward's hidden
+  states).
 - ``DecodeExecutor`` tokens exactly equal at f32 parameters.
 """
 import functools
@@ -53,6 +56,7 @@ from repro_torch.models import convert
 from repro_torch.models import lm as tlm
 from repro_torch.models import recurrent
 from repro_torch.models import transformer as tt
+from test_torch_models import assert_greedy, jax_past_the_window
 
 RECURRENT = ("rwkv6_3b", "recurrentgemma_2b")
 CPU = torch.device("cpu")
@@ -250,6 +254,9 @@ def test_mixers_reach_the_scans_through_the_seam(monkeypatch):
 # ---------------------------------------------------------------------------
 # prefill and decode
 # ---------------------------------------------------------------------------
+FORWARD = "(JAX forward) "      # a step held to the JAX forward
+
+
 def _serve_steps(arch, prompt, n_steps, dtype, *, cache0=None):
     """Prefill ``prompt`` then decode ``n_steps`` seeded tokens in both
     packages; yields (what, port logits, jax logits, port cache, jax
@@ -258,16 +265,25 @@ def _serve_steps(arch, prompt, n_steps, dtype, *, cache0=None):
     bf16 ``x_prev``, an f32 state) and cast to f32 for recurrentgemma
     (its K/V cache refuses f32 K/V); the port's cache has the same dtypes
     leaf for leaf.  ``cache0`` (a function of the JAX cache) sets the
-    cache both prefills start from."""
+    cache both prefills start from.  A decode step at a position at or
+    past the local window finds the ring full: from there on the jax
+    logits are the JAX full-sequence forward's at that position and the
+    jax cache the JAX prefill's over the tokens so far (``what`` says
+    so)."""
     jc, tc = _cfgs(arch)
     max_len = 24
     params = _jax_params(arch)
-    jcache = jt.init_cache(jc, 2, max_len)
     tdtype = torch.bfloat16
     if dtype == "float32":
         params = _f32(params)
         if arch == "recurrentgemma_2b":
-            jcache, tdtype = _f32(jcache), torch.float32
+            tdtype = torch.float32
+
+    def fresh():
+        c = jt.init_cache(jc, 2, max_len)
+        return _f32(c) if tdtype == torch.float32 else c
+
+    jcache = fresh()
     if cache0 is not None:
         jcache = cache0(jcache)
     tp = _port(params, tc)
@@ -283,12 +299,23 @@ def _serve_steps(arch, prompt, n_steps, dtype, *, cache0=None):
                                       tcache)
     yield "prefill", tl, jl, convert.tree_to_numpy(tcache), jcache
     feed = _tokens(6, (n_steps, 2, 1), jc.vocab)
+    past = jax_past_the_window(
+        jc, params, np.concatenate([toks] + list(feed), axis=1), fresh)
     for t in range(n_steps):
-        _, jl, jcache = jlm.make_decode_step(jc)(
-            params, jcache, jnp.int32(prompt + t), jnp.asarray(feed[t]))
+        pos = prompt + t
         tn, tl, tcache = tlm.make_decode_step(tc)(
-            tp, tcache, prompt + t, torch.from_numpy(feed[t]))
+            tp, tcache, pos, torch.from_numpy(feed[t]))
         assert tn.dtype == torch.int32
+        ref = past(pos)
+        if ref is not None:
+            jl, jcache = ref
+            if dtype == "float32":
+                assert_greedy(tn.numpy(), jl, 1e-4)
+            yield (f"{FORWARD}decode {t}", tl, jl,
+                   convert.tree_to_numpy(tcache), jcache)
+            continue
+        _, jl, jcache = jlm.make_decode_step(jc)(
+            params, jcache, jnp.int32(pos), jnp.asarray(feed[t]))
         yield f"decode {t}", tl, jl, convert.tree_to_numpy(tcache), jcache
 
 
@@ -319,7 +346,8 @@ def test_prefill_and_decode_match_jax_at_bf16(arch, prompt):
 def test_prefill_and_decode_match_jax_at_f32(arch, prompt):
     for what, tl, jl, tcache, jcache in _serve_steps(arch, prompt, 4,
                                                      "float32"):
-        assert _rel(tl, jl) < (1e-4 if what == "prefill" else 1e-3), what
+        tol = 1e-3 if what.startswith("decode") else 1e-4
+        assert _rel(tl, jl) < tol, what
         _caches_close(tcache, jcache, 4e-3, what)
 
 
@@ -344,14 +372,12 @@ def test_f32_cache_decode_matches_own_forward(arch):
     """The port's state hand-off from prefill to decode: with f32 weights
     and an f32 cache, every step's logits within 1e-4 of max|logit| of the
     port's f32 full-sequence forward over the prompt and the fed tokens.
-    RecurrentGemma's steps stay at positions 9-14, inside its reduced
-    window of 16: at a position past it the decode attends window + 1
-    positions, the reference's semantics (ROADMAP C), which the
-    ``test_prefill_and_decode_match_jax_*[recurrentgemma_2b-20]`` cases
-    hold to the reference's decode."""
+    RecurrentGemma's steps run at positions 9-20, across its reduced
+    window of 16: from position 16 on its local ring is full and the step
+    attends the forward's window."""
     _, tc = _cfgs(arch)
     tp = _port(_f32(_jax_params(arch)), tc)
-    prompt, n = (20 if arch == "rwkv6_3b" else 9), 6
+    prompt, n = (20, 6) if arch == "rwkv6_3b" else (9, 12)
     toks = torch.from_numpy(_tokens(7, (2, prompt + n), tc.vocab))
     fwd, _ = tt.model_apply(tp, tc, {"tokens": toks})
     cache = tt.init_cache(tc, 2, prompt + n, dtype=torch.float32, device=CPU)
