@@ -115,19 +115,27 @@ each printing a line:
    vocab 256,000), 2 layers (one local, one full): its scoring forward on
    8,192 tokens held as the model's; the window, both softcaps, the
    sandwich norms, gelu-tanh and the scaled embedding on the kernel path.
-15. ``linear_scan`` kernel checks — ``rwkv6_scan`` against its plain
-   version (the chunked factored form) and the exact scan of ``ref.py``
-   on every case of the CPU tests (``RWKV_CASES``: S not a multiple of the
-   chunk, chunks 16 to 64, S = 1, nonzero ``state0``), the strong-decay
-   case (|log w| = 1, chunk 32) and the phases' shapes (RWKV-6 3B's
-   scoring (4, 4,096, 40, 64) and serving (8, 512, 40, 64)), each with f32
-   and with bf16 r, k, v, within the reference's tolerances (y within 1e-4
-   of max|y|, S_T atol 1e-3 / rtol 1e-4); ``rglru_scan`` bit-equal to its
-   plain version and to the exact scan on every CPU case and at
-   RecurrentGemma's shapes ((1, 8,192, 2,560), (8, 512, 2,560)); then at
-   the main shapes each kernel's ms (the CUDA-event method above), the
-   plain version's and the bound (no single PyTorch call computes either
-   recurrence: no library yardstick).
+15. ``linear_scan`` kernel checks — ``rwkv6_scan`` (the per-token body
+   below 16 tokens, the two-level chunked body on the tensor cores from
+   16 on) against its plain version (the TPU kernel's chunked factored
+   form) and the exact scan of ``ref.py`` on every case of the CPU tests
+   (``RWKV_CASES``: S not a multiple of the chunk, chunks 16 to 64, S = 1,
+   nonzero ``state0``), the strong-decay case (|log w| = 1, chunk 32), the
+   tail lengths 15, 17, 63, 65 and 127, rows staged by plain loads (hd 12,
+   views one element into their storage) and the phases' shapes (RWKV-6
+   3B's scoring (4, 4,096, 40, 64) and serving prefill (8, 512, 40, 64),
+   nonzero ``state0``), each with f32 and with bf16 r, k, v, within the
+   reference's tolerances (y within 1e-4 of max|y|, S_T atol 1e-3 / rtol
+   1e-4); decays past the plain version's domain (|log w| = 4, w0 over
+   [-6, 1.5], 5 % of w exactly 0) against the exact scan alone;
+   ``rglru_scan`` bit-equal to its plain version and to the exact scan on
+   every CPU case and at RecurrentGemma's shapes ((1, 8,192, 2,560),
+   (8, 512, 2,560)); then at the main shapes each kernel's ms (the
+   CUDA-event method above), the plain version's and the bound (no single
+   PyTorch call computes either recurrence: no library yardstick), and
+   ``rwkv6_scan`` at the serving prefill and decode shapes, at B = 3 and
+   6, and its per-token body alone at the scoring and prefill shapes.
+   ``python3 chip_smoke.py --scan`` runs phases 2 and 15 alone.
 16. ``rwkv6`` — RWKV-6 3B at full width and depth (32 layers, d_model
    2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, 2,913,405,440
    parameters, random bf16 weights from ``--seed``): the scoring forward
@@ -135,7 +143,8 @@ each printing a line:
    ``DecodeExecutor(max_batch=8)`` on 8 requests of 512-token prompts and
    32 new tokens (32 launches a decode step), with the ``model`` phase's
    checks, the plain path being the mixers' seam pointed at the plain
-   scans (:func:`plain_scans`).  The random model is ill-conditioned at
+   scans (:func:`plain_scans`); the largest sum |log w| over a 64-token
+   chunk that the layers hand their scans (:func:`decay_probe`).  The random model is ill-conditioned at
    its first tokens, so its f32 logits are held to 1e-4 from position
    n_layers + 32 on and the first positions, like its f32 decode steps
    (at the model's f32 floor, ~1e-4 on the plain path too), to 1.5x the
@@ -190,6 +199,7 @@ F32_EPS = float(np.finfo(np.float32).eps)
 RANGE_SUM_EPS = 48             # range_sum limit in eps_f32 * P: ~3x the
                                # worst measured at 10^6 keys (16.7)
 F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM, TF32 on the tensor cores, dense
 REPLACES = {
     "heap_kmin": "src/repro/kernels/heap_kmin/kernel.py:86",
     "heap_sift": "src/repro/kernels/heap_sift/kernel.py:115",
@@ -2006,6 +2016,33 @@ def plain_scans(exact=False):
         recurrent.SCANS.update(saved)
 
 
+@contextlib.contextmanager
+def decay_probe(torch):
+    """For the block's duration, record what the RWKV-6 mixers hand their
+    scan: the largest sum of |log w| over a 64-token chunk (chunks from
+    each sequence's start, per batch row, head and channel), the measure
+    of the reference's chunked domain (below ~80).  Yields a dict whose
+    "max" is that largest sum (None if no RWKV-6 scan ran)."""
+    from repro_torch.models import recurrent
+
+    seen = {"max": None}
+    scan = recurrent.SCANS["rwkv6"]
+
+    def probed(r, k, v, w, u, s0, **kw):
+        B, S, H, hd = w.shape
+        lw = -torch.log(w.float())
+        lw = torch.nn.functional.pad(lw, (0, 0, 0, 0, 0, (-S) % 64))
+        top = float(lw.reshape(B, -1, 64, H, hd).sum(2).max())
+        seen["max"] = top if seen["max"] is None else max(seen["max"], top)
+        return scan(r, k, v, w, u, s0, **kw)
+
+    recurrent.SCANS["rwkv6"] = probed
+    try:
+        yield seen
+    finally:
+        recurrent.SCANS["rwkv6"] = scan
+
+
 def head_positions(cfg):
     """The first positions whose f32 logits :func:`scoring` holds apart:
     n_layers + 32 with RWKV-6 layers (see there), else none."""
@@ -2068,10 +2105,19 @@ def device_rows(ka):
     return [e for e in ka if e.device_type == DeviceType.CUDA]
 
 
+# the profiler's names of the hand-written kernels (their demangled
+# signatures contain these): rwkv6_scan's two bodies, flash_attention's two
+# kernels, rglru_scan's
+PROFILED = {"rwkv6_scan": ("::chunk::kernel", "::step::kernel"),
+            "flash_attention": ("::bf16::kernel", "::f32::kernel"),
+            "rglru_scan": ("rglru_scan_kernel",)}
+
+
 def profile_once(torch, one, top=5):
     """One call of ``one()`` (already warm) under torch.profiler: its wall
     time, the device time of all its kernels, the busy share, the kernel
-    launches, and the ``top`` device ops by device time."""
+    launches, the ``top`` device ops by device time, and each hand-written
+    kernel's device time and launches (``PROFILED``) wherever it ranks."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2089,7 +2135,13 @@ def profile_once(torch, one, top=5):
             "busy_share": dev_us / 1e6 / wall,
             "launches": sum(e.count for e in ka if e.key in LAUNCH_CALLS),
             "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-                    for e in busiest]}
+                    for e in busiest],
+            "ours": {name: (sum(e.self_device_time_total for e in mine) / 1e3,
+                            sum(e.count for e in mine))
+                     for name, keys in PROFILED.items()
+                     for mine in [[e for e in rows
+                                   if any(k in e.key for k in keys)]]
+                     if mine}}
 
 
 def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
@@ -2165,7 +2217,8 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
         ref_loss = float(lm.loss_fn(params, plain, batch))
     check(abs(loss - ref_loss) <= LOSS_TOL and math.isfinite(loss),
           f"{name}: loss {loss} vs the plain path's {ref_loss}")
-    layer_err = layer_check(torch, cfg, params, tokens)
+    with decay_probe(torch) as decays:
+        layer_err = layer_check(torch, cfg, params, tokens)
     check(layer_err <= LOGIT_TOL, f"{name}: a layer's mixer output "
           f"differs from the plain path's by {layer_err:.3e} of max|y| "
           f"(limit {LOGIT_TOL})")
@@ -2217,7 +2270,7 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
             "bf16_vs_plain": bf16_vs_plain,
             "kernel_noise": kernel_noise, "plain_noise": plain_noise,
             "max_logit": scale, "loss_s": t_loss, "forward_s": t_fwd,
-            "profile": prof,
+            "profile": prof, "decay_chunk_max": decays["max"],
             "tokens_per_s": B * S / t_loss}
 
 
@@ -2452,22 +2505,60 @@ RG_D_RNN = 2560
 RWKV_SHAPES = ((RWKV_BATCH, RWKV_SEQ, 40, 64),
                (SERVE_BATCH, SERVE_PROMPT, 40, 64))
 RGLRU_SHAPES = ((1, RG_SEQ, RG_D_RNN), (SERVE_BATCH, SERVE_PROMPT, RG_D_RNN))
+# rwkv6_scan's serving launches, timed beside the scoring shape: the
+# prefill of 8 x 512-token prompts and one decode step of 8 requests
+RWKV_SERVE_SHAPES = (("prefill", (SERVE_BATCH, SERVE_PROMPT, 40, 64)),
+                     ("decode", (SERVE_BATCH, 1, 40, 64)))
+# decays past the reference's chunked domain (sum |log w| < ~80 over a
+# 64-token chunk), held against the exact scan only: |log w| = 4 a token
+# (256 a chunk); RWKV-6's w = exp(-exp(w0)) with w0 over [-6, 1.5]; the
+# reference test's draw with 5 % of the decays exactly 0
+PAST_DOMAIN = ("|log w| = 4", "w0 in [-6, 1.5]", "5% w = 0")
+RWKV_PAST_SHAPES = ((2, 256, 4, 64), (1, 1024, 8, 64))
+# sequence lengths around the per-token body's limit (16) and the chunked
+# body's chunk (64)
+RWKV_TAILS = (15, 17, 63, 65, 127)
+# inputs whose rows the chunked body cannot stage by 16-byte copies (plain
+# loads instead): hd 12 (24-byte bf16 rows) and views one element into
+# their storage (every row misaligned)
+RWKV_UNALIGNED = (((2, 100, 3, 12), "rows"), ((2, 100, 3, 64), "offset"))
+RWKV_FILL = (3, 6)             # batches timed beside the scoring shape's
 
 
 def _rwkv_inputs(torch, gen, dev, B, S, H, hd, dtype, decay=None):
     """r, k, v standard normal in ``dtype``; log w = -exp(U(-3, 0.5)) as
-    the reference's test draws it (or a fixed decay with zero u and
-    state0: the strong-decay case); u and state0 normal; w, u, state0
-    f32."""
-    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+    the reference's test draws it, or a fixed ``decay`` with zero u and
+    state0 (the strong-decay case), or one of ``PAST_DOMAIN``'s draws;
+    u and state0 normal; w, u, state0 f32.  ``decay`` "offset" gives the
+    reference draw as views one element into their storage, "rows" the
+    reference draw itself (named apart for the case list)."""
+    shape = (B, S, H, hd)
+    if decay == "offset":        # views one element into their storage
+        def view(x):
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            out = flat[1:].view(shape)
+            out.copy_(x)
+            return out
+        r, k, v, w, u, s0 = _rwkv_inputs(torch, gen, dev, B, S, H, hd, dtype)
+        return view(r), view(k), view(v), view(w), u, s0
+    r, k, v = (torch.randn(shape, generator=gen, device=dev)
                .to(dtype) for _ in range(3))
-    if decay is None:
-        w = torch.exp(-torch.exp(torch.rand(
-            (B, S, H, hd), generator=gen, device=dev) * 3.5 - 3.0))
+    if decay is None or decay in PAST_DOMAIN or decay == "rows":
+        if decay == PAST_DOMAIN[0]:
+            w = torch.full(shape, math.exp(-4.0), device=dev)
+        elif decay == PAST_DOMAIN[1]:
+            w = torch.exp(-torch.exp(torch.rand(
+                shape, generator=gen, device=dev) * 7.5 - 6.0))
+        else:
+            w = torch.exp(-torch.exp(torch.rand(
+                shape, generator=gen, device=dev) * 3.5 - 3.0))
+        if decay == PAST_DOMAIN[2]:
+            w = torch.where(torch.rand(shape, generator=gen, device=dev)
+                            < 0.05, 0.0, w)
         u = torch.randn((H, hd), generator=gen, device=dev)
         s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
     else:
-        w = torch.full((B, S, H, hd), decay, device=dev)
+        w = torch.full(shape, decay, device=dev)
         u = torch.zeros((H, hd), device=dev)
         s0 = torch.zeros((B, H, hd, hd), device=dev)
     return r, k, v, w, u, s0
@@ -2492,23 +2583,29 @@ def _rwkv_err(torch, got, want, what):
 def scan_bounds(kind, shape, itemsize):
     """The least time of one call: the bytes the function must move (each
     input read once, each output written once) over 3.35 TB/s against its
-    f32 FLOP over 67 TFLOP/s.  RWKV-6: r, k, v in ``itemsize`` bytes, w,
-    y in f32, state0 and S_T (hd x hd) in f32; 5 FLOP a state element a
-    step (the decay multiply-add w∘S + k⊗v, and r·S).  RG-LRU: a, b, h in
-    f32 and h0, h_T; 2 FLOP an element.  Returns (ms, by, FLOP, bytes)."""
+    f32 FLOP at the rate of the units that can do them.  RWKV-6: r, k, v
+    in ``itemsize`` bytes, w, y in f32, state0 and S_T (hd x hd) in f32;
+    5 FLOP a state element a step (the decay multiply-add w∘S + k⊗v, and
+    r·S), which the chunked form does as matrix products at f32 accuracy
+    on the tensor cores (3xTF32: three TF32 products an f32 one, 495 / 3
+    TFLOP/s); the f32 CUDA-core time (67 TFLOP/s) is returned beside it.
+    RG-LRU: a, b, h in f32 and h0, h_T; 2 FLOP an element on the CUDA
+    cores.  Returns (ms, by, FLOP, bytes, CUDA-core ms)."""
     if kind == "rwkv6_scan":
         B, S, H, hd = shape
         n = B * S * H * hd
         nbytes = 3 * itemsize * n + 8 * n + 8 * B * H * hd * hd + 4 * H * hd
         flop = 5 * B * S * H * hd * hd
+        rate = TF32_OPS_PER_S / 3
     else:
         B, S, R = shape
         nbytes = 12 * B * S * R + 8 * B * R
         flop = 2 * B * S * R
+        rate = F32_OPS_PER_S
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = flop / F32_OPS_PER_S * 1e3
+    op_ms = flop / rate * 1e3
     return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms
-            else "operations", flop, nbytes)
+            else "operations", flop, nbytes, flop / F32_OPS_PER_S * 1e3)
 
 
 def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
@@ -2516,20 +2613,31 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
     against their plain versions and the exact scans of ``ref.py``:
 
     - ``rwkv6_scan`` on every CPU case (``RWKV_CASES``), the strong-decay
-      case (|log w| = 1, chunk 32, as ``test_rwkv6_strong_decay_domain``)
-      and ``rwkv_shapes`` (the phases' scoring and serving shapes, chunk
-      64), each with f32 and with bf16 r, k, v: y within SCAN_Y_TOL of
-      max|y| and S_T within atol SCAN_S_ATOL / rtol SCAN_S_RTOL of both;
+      case (|log w| = 1, chunk 32, as ``test_rwkv6_strong_decay_domain``),
+      the tail lengths ``RWKV_TAILS`` (the per-token body below 16 tokens,
+      the chunked body's partial chunks) and ``rwkv_shapes`` (the phases'
+      scoring and serving-prefill shapes, chunk 64; nonzero ``state0``
+      everywhere but the strong-decay case), each with f32 and with bf16
+      r, k, v: y within SCAN_Y_TOL of max|y| and S_T within atol
+      SCAN_S_ATOL / rtol SCAN_S_RTOL of both; then the decays past the
+      plain version's domain (``PAST_DOMAIN`` at ``RWKV_PAST_SHAPES``,
+      exact zeros among them), where the chunked plain form overflows,
+      held to the exact scan alone at the same tolerances;
     - ``rglru_scan`` on every CPU case (``RGLRU_CASES``, nonzero h0) and
       ``rglru_shapes``: h and h_T bit-equal to both (the same two
       roundings, no FMA).
 
     Then at the first shape of each (the model's dtypes: bf16 r, k, v and
     f32 w; f32 a, b) the kernel's ms, the plain version's and the bound
-    (:func:`scan_bounds`); no single PyTorch call computes either
-    recurrence, so there is no library yardstick."""
+    (:func:`scan_bounds`), and for ``rwkv6_scan`` the serving launches'
+    shapes (``RWKV_SERVE_SHAPES``) and, at the scoring and prefill shapes,
+    the per-token body alone (``rwkv6_scan_body("step", ...)``, the
+    exact recurrence the chunked body replaced there) beside the chunked
+    one.  No single PyTorch call
+    computes either recurrence, so there is no library yardstick."""
     from repro_torch.kernels.linear_scan import (rglru_scan, rglru_scan_plain,
                                                  rwkv6_scan, rwkv6_scan_plain)
+    from repro_torch.kernels.linear_scan.ops import rwkv6_scan_body
     from repro_torch.kernels.linear_scan.ref import (rglru_reference,
                                                      rwkv6_reference)
 
@@ -2537,26 +2645,36 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rec = {"rwkv6_scan": {"checked": 0, "max_abs_err": 0.0,
-                          "max_abs_err_ref": 0.0},
+                          "max_abs_err_ref": 0.0, "past_domain_err": 0.0},
            "rglru_scan": {"checked": 0, "max_abs_err": 0.0}}
     cases = [(c[:4], c[4], None) for c in RWKV_CASES]
     cases += [((1, 64, 2, 16), 32, math.exp(-1.0))]
+    cases += [((2, S, 4, 64), 64, None) for S in RWKV_TAILS]
+    cases += [(shape, 64, kind) for shape, kind in RWKV_UNALIGNED]
     cases += [(shape, 64, None) for shape in rwkv_shapes]
+    if dev.type == "cuda":     # on the host the wrapper is the plain form
+        cases += [(shape, 64, kind) for kind in PAST_DOMAIN
+                  for shape in RWKV_PAST_SHAPES]
     r6 = rec["rwkv6_scan"]
+    r6["cases"] = len(cases)
     kept = {}
     for shape, chunk, decay in cases:
+        past = decay in PAST_DOMAIN
         for dt in (torch.float32, torch.bfloat16):
             args = _rwkv_inputs(torch, gen, dev, *shape, dt, decay)
-            what = f"{shape} chunk {chunk} {str(dt)[6:]}"
+            what = f"{shape} {decay or ''} chunk {chunk} {str(dt)[6:]}"
             got = rwkv6_scan(*args, chunk=chunk)
-            e = _rwkv_err(torch, got, rwkv6_scan_plain(*args, chunk=chunk),
-                          what + " vs plain")
+            if not past:
+                e = _rwkv_err(torch, got, rwkv6_scan_plain(
+                    *args, chunk=chunk), what + " vs plain")
+                r6["max_abs_err"] = max(r6["max_abs_err"], e)
             e_ref = _rwkv_err(torch, got, rwkv6_reference(*args),
                               what + " vs the exact scan")
-            r6["max_abs_err"] = max(r6["max_abs_err"], e)
             r6["max_abs_err_ref"] = max(r6["max_abs_err_ref"], e_ref)
+            if past:
+                r6["past_domain_err"] = max(r6["past_domain_err"], e_ref)
             r6["checked"] += 1
-            if shape == rwkv_shapes[0] and dt == torch.bfloat16:
+            if shape == rwkv_shapes[0] and dt == torch.bfloat16 and not past:
                 kept["rwkv6_scan"] = args
             del args, got
     rg = rec["rglru_scan"]
@@ -2588,10 +2706,68 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
         r["plain_ms"] = _per_call_ms(torch, lambda: plain(*args), 1, 2,
                                      hold=False)
         r["shape"] = list(args[0].shape)
-        r["bound_ms"], r["bound_by"], r["flop"], r["bytes"] = scan_bounds(
-            name, args[0].shape, args[0].element_size())
+        (r["bound_ms"], r["bound_by"], r["flop"], r["bytes"],
+         r["cuda_core_ms"]) = scan_bounds(name, args[0].shape,
+                                          args[0].element_size())
         r["library_ms"] = None
+    args = kept["rwkv6_scan"]
+    r6["step_ms"] = _per_call_ms(
+        torch, lambda: rwkv6_scan_body("step", *args), 10, 5, hold=True)
+    # the grid's fill: one CTA a (b, h) on 132 SMs, at B = 3 (120 CTAs,
+    # one an SM) and B = 6 (240, two on most SMs) beside the scoring B
+    r6["by_batch"] = {}
+    for B in RWKV_FILL:
+        shape = (B,) + tuple(args[0].shape[1:])
+        fill = _rwkv_inputs(torch, gen, dev, *shape, torch.bfloat16)
+        r6["by_batch"][B] = _per_call_ms(torch, lambda: rwkv6_scan(*fill),
+                                         10, 5, hold=True)
+        del fill
+    for label, shape in RWKV_SERVE_SHAPES:
+        args = _rwkv_inputs(torch, gen, dev, *shape, torch.bfloat16)
+        r6[label + "_shape"] = list(shape)
+        r6[label + "_ms"] = _per_call_ms(torch, lambda: rwkv6_scan(*args),
+                                         10 if shape[1] > 1 else 30, 5,
+                                         hold=True)
+        if shape[1] >= 16:
+            r6[label + "_step_ms"] = _per_call_ms(
+                torch, lambda: rwkv6_scan_body("step", *args), 10, 5,
+                hold=True)
+        r6[label + "_bound_ms"] = scan_bounds("rwkv6_scan", shape, 2)[0]
+        del args
     return rec
+
+
+def scan_line(ls, seconds, timing):
+    """The ``kernels:`` line of :func:`linear_scan_phase`'s records."""
+    r6, rg = ls["rwkv6_scan"], ls["rglru_scan"]
+    line = (f"kernels: rwkv6_scan vs plain and the exact scan on "
+            f"{r6['checked']} launches ({r6['cases']} cases x f32, bf16 "
+            f"r/k/v; max_abs_err {r6['max_abs_err']} vs plain, "
+            f"{r6['max_abs_err_ref']} vs exact, {r6['past_domain_err']} "
+            f"past the plain version's domain (vs exact only); y within "
+            f"{SCAN_Y_TOL} of max|y|, S_T atol {SCAN_S_ATOL} / rtol "
+            f"{SCAN_S_RTOL}); rglru_scan == plain == exact scan bit for bit "
+            f"on {rg['checked']} launches ({seconds:.1f} s); ")
+    if not timing:
+        return line + "timing not measured"
+    line += " ".join(
+        f"{k}: ms {r['ms']:.6f} at {r['shape']} plain_ms "
+        f"{r['plain_ms']:.6f} bound_ms {r['bound_ms']:.6f} "
+        f"({r['bound_by']}: {r['bytes']} bytes / 3.35 TB/s; {r['flop']:.4e} "
+        f"FLOP: {r['cuda_core_ms']:.6f} ms at 67 TFLOP/s f32 on the CUDA "
+        f"cores" + (f", {r['flop'] / TF32_OPS_PER_S * 3e3:.6f} ms as 3xTF32 "
+                    f"at 495 / 3 TFLOP/s" if k == "rwkv6_scan" else "")
+        + ") library_ms None;" for k, r in ls.items())
+    return line + (f" rwkv6_scan per-token body alone {r6['step_ms']:.6f} "
+                   f"ms at {r6['shape']}; by batch (CTAs = 40 B on 132 SMs): "
+                   + ", ".join(f"B {B} {ms:.6f} ms"
+                               for B, ms in r6["by_batch"].items())
+                   + "; serving: ") + "; ".join(
+        f"{label} {r6[label + '_shape']} ms {r6[label + '_ms']:.6f}"
+        + (f" (per-token body {r6[label + '_step_ms']:.6f})"
+           if label + "_step_ms" in r6 else "")
+        + f" bound_ms {r6[label + '_bound_ms']:.6f}"
+        for label, _ in RWKV_SERVE_SHAPES)
 
 
 def slow_decay(torch, params, seed):
@@ -2796,7 +2972,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     from repro_torch.core import sharded_pq as spq
     from repro_torch.core.pc_pq import (pc_priority_queue,
                                         pc_sharded_priority_queue)
-    from repro_torch.kernels import (_build, heap_insert, heap_kmin,
+    from repro_torch.kernels import (heap_insert, heap_kmin,
                                      heap_sift, label_prop, sorted_merge)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.linear_scan import rglru_scan, rwkv6_scan
@@ -2812,15 +2988,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan}
 
     if dev.type == "cuda":
-        t0 = time.perf_counter()
-        lib = _build.build()
-        _build.library()
-        log = (lib.parent / "build.log").read_text()
-        cufilt = str(Path(_build.nvcc_path()).parent / "cu++filt")
-        out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas "
-            "(registers, spill stores / loads in bytes): " + "; ".join(
-                f"{src} {n} {r} regs, spills {st} / {ld}"
-                for src, n, r, st, ld in ptxas_report(log, cufilt)))
+        build_line(out)
 
     extra = n_replay * C_MAX + 2
     total = n_keys + threads * ops + extra
@@ -3054,6 +3222,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "" if not s["head"] else
                 f", at positions 0-{s['head'] - 1} {s['head_bf16'][0]:.3e} "
                 f"(plain path {s['head_bf16'][1]:.3e}; not held)")
+            + ("" if s["decay_chunk_max"] is None else
+               f"; the layers' scans saw sum |log w| up to "
+               f"{s['decay_chunk_max']:.3f} over a 64-token chunk (the "
+               f"reference's chunked form holds below ~80)")
             + f"{extra}; "
             f"max_memory_allocated {s.get('max_memory_allocated', 'n/a')} "
             f"({s['seconds']:.1f} s)")
@@ -3063,7 +3235,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 f"{pr['wall_ms']:.3f} ms wall, {pr['device_ms']:.3f} ms of "
                 f"device time (busy share {pr['busy_share']:.4f}), "
                 f"{pr['launches']} kernel launches; busiest: " + "; ".join(
-                    f"{k} {ms:.3f} ms x {n}" for k, ms, n in pr["top"]))
+                    f"{k} {ms:.3f} ms x {n}" for k, ms, n in pr["top"])
+                + "; hand-written: " + ("; ".join(
+                    f"{k} {ms:.3f} ms x {n} ({ms / n:.4f} a launch)"
+                    for k, (ms, n) in pr["ours"].items()) or "none"))
 
     lm("model", model_phase, batch=model_batch, seq=model_seq, **serving)
     lm("gemma2", gemma2_phase, seq=gemma_seq)
@@ -3076,20 +3251,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         checked.max_abs_err[name] = r["max_abs_err"]
         if timing:
             times[name] = r
-    r6, rg = ls["rwkv6_scan"], ls["rglru_scan"]
-    out(f"kernels: rwkv6_scan vs plain and the exact scan on "
-        f"{r6['checked']} launches ({len(RWKV_CASES) + 1 + len(rwkv_shapes)}"
-        f" cases x f32, bf16 r/k/v; max_abs_err {r6['max_abs_err']} vs "
-        f"plain, {r6['max_abs_err_ref']} vs exact; y within {SCAN_Y_TOL} of "
-        f"max|y|, S_T atol {SCAN_S_ATOL} / rtol {SCAN_S_RTOL}); rglru_scan "
-        f"== plain == exact scan bit for bit on {rg['checked']} launches "
-        f"({time.perf_counter() - t0:.1f} s); " + (
-            "timing not measured" if not timing else " ".join(
-                f"{k}: ms {r['ms']:.6f} at {r['shape']} plain_ms "
-                f"{r['plain_ms']:.6f} bound_ms {r['bound_ms']:.6f} "
-                f"({r['bound_by']}: {r['flop']:.4e} FLOP / 67 TFLOP/s f32 "
-                f"vs {r['bytes']} bytes / 3.35 TB/s) library_ms None;"
-                for k, r in ls.items())))
+    out(scan_line(ls, time.perf_counter() - t0, timing))
 
     lm("rwkv6", model_phase, batch=rwkv_batch, seq=rwkv_seq, name="rwkv6",
        arch=RWKV_ARCH, tag=16, **serving)
@@ -3131,6 +3293,11 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
                 "gemma_bound_ms", "rg_shape", "rg_ms", "rg_plain_ms",
                 "rg_bound_ms")})
+        if name == "rwkv6_scan":
+            rec.update({k: t.get(k) for k in (
+                "step_ms", "by_batch", "prefill_shape", "prefill_ms",
+                "prefill_step_ms", "prefill_bound_ms", "decode_shape",
+                "decode_ms", "decode_bound_ms")})
         if name in ("rwkv6_scan", "rglru_scan"):
             p = paths[name][0]
             rec["shape"] = t.get("shape")
@@ -3140,12 +3307,39 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     return kernels, results
 
 
+def build_line(out=print):
+    """Phase 2: build the kernels; print the time and ptxas's report."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log = (lib.parent / "build.log").read_text()
+    cufilt = str(Path(_build.nvcc_path()).parent / "cu++filt")
+    out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas "
+        "(registers, spill stores / loads in bytes): " + "; ".join(
+            f"{src} {n} {r} regs, spills {st} / {ld}"
+            for src, n, r, st, ld in ptxas_report(log, cufilt)))
+
+
+def scan_only(torch, seed):
+    """``--scan``: phases 2 and 15 alone, for work on the scan kernels."""
+    build_line()
+    t0 = time.perf_counter()
+    ls = linear_scan_phase(torch, torch.device("cuda"), seed, RWKV_SHAPES,
+                           RGLRU_SHAPES, True)
+    print(scan_line(ls, time.perf_counter() - t0, True))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="only the pass-time breakdown (profile_passes), "
                          "not the checks")
+    ap.add_argument("--scan", action="store_true",
+                    help="only the build and the linear_scan kernel checks "
+                         "and timings (phases 2 and 15)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3172,6 +3366,9 @@ def main(argv=None) -> int:
     print(smi)
     if args.profile:
         profile_passes(seed=args.seed)
+        return 0
+    if args.scan:
+        scan_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

@@ -56,6 +56,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_RWKV6 = [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P]
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
     # a, size, K, cap, ne, c_max, ids, vals, stream
@@ -80,9 +81,11 @@ SIGNATURES = {
     # q_offset, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
     + [_F, _F] + [_I] * 5 + [_P],
-    # r, k, v, w, u, state0, y, S_T, B, S, H, hd, the (batch, seq, head)
-    # strides of r, k, v and w, dtype, stream
-    "rwkv6_scan_launch": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    # the per-token and the chunked body: r, k, v, w, u, state0, y, S_T,
+    # B, S, H, hd, the (batch, seq, head) strides of r, k, v and w, dtype,
+    # stream
+    "rwkv6_scan_step_launch": _RWKV6,
+    "rwkv6_scan_chunk_launch": _RWKV6,
     # a, b, h0, hs, h_T, B, S, R, the (batch, seq) strides of a and b,
     # stream
     "rglru_scan_launch": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_P],

@@ -25,8 +25,13 @@ The plain versions compute what the reference's Pallas kernels compute
   shorter than ``chunk`` is padded with decay 1.0 and zero inputs, so the
   padded steps leave the state alone (the reference wrapper's rule).  Its
   validity domain is the reference's: Σ|log w| over a chunk below ~80.
-  The kernel runs the exact per-token recurrence instead (no domain), so
-  the two agree to f32 rounding, not bit for bit.
+  The kernel has no such domain: below ``SHORT_SEQ`` tokens (a decode
+  step) it runs the exact per-token recurrence, from ``SHORT_SEQ`` on the
+  two-level chunked form on the tensor cores, whose decay factors are
+  products of w over token ranges (none above 1) and whose products run
+  at f32 accuracy (3xTF32; ``csrc/rwkv6_scan.cu``).  Within the plain
+  version's domain the two agree to f32 rounding, not bit for bit;
+  outside it the kernel is held to the exact scan (``ref.py``).
 - :func:`rglru_scan_plain` is the exact step ``h = a_t·h`` then ``+ b_t``,
   two separately rounded operations, as the kernel's
   ``__fadd_rn(__fmul_rn(a, h), b)``: the two are bit-equal.  A padded
@@ -45,6 +50,7 @@ from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 64                  # the widest hd rwkv6_scan.cu is built for
+SHORT_SEQ = 16                 # shorter sequences take the per-token body
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,12 +132,29 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor, *,
                chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 recurrence (arguments as :func:`rwkv6_scan_plain`).  On CUDA
-    tensors: one kernel launch on the current stream, no host sync; r, k
-    and v of one dtype (f32 or bf16), read through their (batch, seq,
-    head) strides with the last dim contiguous; w in f32 (cast if not);
-    ``hd`` at most ``MAX_HEAD``.  ``chunk`` is the plain version's."""
+    tensors: one kernel launch on the current stream, no host sync, the
+    per-token body below ``SHORT_SEQ`` tokens and the chunked body from
+    there on; r, k and v of one dtype (f32 or bf16), read through their
+    (batch, seq, head) strides with the last dim contiguous; w in f32
+    (cast if not); ``hd`` at most ``MAX_HEAD``.  ``chunk`` is the plain
+    version's."""
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0, chunk=chunk)
+    body = "step" if r.shape[1] < SHORT_SEQ else "chunk"
+    y, sT = rwkv6_scan_body(body, r, k, v, w, u, state0)
+    if r.shape[0] * r.shape[2]:        # no launch for an empty grid
+        rwkv6_scan.launches += 1
+    return y, sT
+
+
+def rwkv6_scan_body(body: str, r: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                    state0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of one body of ``rwkv6_scan`` on CUDA tensors, ``body``
+    "step" (the exact per-token recurrence, any S) or "chunk" (the
+    chunked form); counts nothing.  :func:`rwkv6_scan` picks the body;
+    this is for comparing the two on the card."""
     dev = _on_card(r)
     B, S, H, hd = r.shape
     for name, t in (("k", k), ("v", v), ("w", w)):
@@ -155,13 +178,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
     if B * H == 0:
         return y, sT
-    rc = _build.library().rwkv6_scan_launch(
+    launch = getattr(_build.library(), f"rwkv6_scan_{body}_launch")
+    rc = launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, hd,
         *_strides(r, "r", 3), *_strides(k, "k", 3), *_strides(v, "v", 3),
         *_strides(w, "w", 3), _DTYPES[r.dtype], _build.stream(dev))
-    _build.check(rc, "rwkv6_scan")
-    rwkv6_scan.launches += 1
+    _build.check(rc, f"rwkv6_scan ({body})")
     return y, sT
 
 
@@ -198,5 +221,5 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
 rwkv6_scan.launches = 0
 rglru_scan.launches = 0
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rglru_scan",
-           "rglru_scan_plain", "MAX_HEAD"]
+__all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_body",
+           "rglru_scan", "rglru_scan_plain", "MAX_HEAD", "SHORT_SEQ"]
