@@ -32,11 +32,18 @@ each printing a line:
    (the graph's half-populated tree edge buffer with junk in its invalid
    slots, (0,0) padding + self-loops + duplicate edges, isolated
    vertices, an empty edge set, a chain of n vertices, a forest, the
-   on-device gates, the contracted-merge form and the union-find form):
-   every step of every fixpoint with ``max_iters = 1`` and every whole
-   fixpoint held element-wise (exactly) against the plain version; then
-   the per-launch times of one step and one full rebuild at the graph's
-   shape, the plain version's and the bound.
+   on-device gates, the contracted-merge form at the graph's 33 pending
+   slots and on both sides of ``SMALL_E``, the union-find form): every
+   step of every fixpoint with ``max_iters = 1`` (the step body; its
+   count is the propagation steps printed), every whole fixpoint (the
+   fixpoint body) in 3 shuffled edge orders, every merge in 3 orders of
+   its live slots and every union-find batch in 3 orders, each held
+   element-wise (exactly) and by its return value against the plain
+   version; then the per-launch times at the graph's shape of the full
+   rebuild (by the fixpoint body and by the step body), the chain, one
+   step, the merge, 16 unions and a gated-off launch of each body, the
+   plain versions' and the bounds.  ``python3 chip_smoke.py --label-prop`` runs phases 2 and
+   6 alone.
 7. ``graph`` — ``batched_read_optimized(DeviceGraph(...))`` (bench_graph's
    ``PC-K4`` row): 1,000,000 vertices, one random tree with half its
    999,999 edges prepopulated, 8 client threads of 90% ``connected`` and
@@ -168,6 +175,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -723,13 +731,29 @@ def label_prop_cases(torch, dev, seed, n):
     return cases
 
 
+def _shuffled(torch, rng, eu, ev, kw, k=None):
+    """The same edge slots in another order: all of them, or the live
+    prefix of ``k`` slots only (the slots past it stay where they are)."""
+    k = eu.numel() if k is None else k
+    p = torch.cat([torch.from_numpy(rng.permutation(k)),
+                   torch.arange(k, eu.numel())]).to(eu.device)
+    kw = dict(kw)
+    if "valid" in kw:
+        kw["valid"] = kw["valid"][p]
+    return eu[p], ev[p], kw
+
+
 def label_prop_phase(torch, dev, seed, n):
     """Every case step by step (``max_iters = 1`` from each iterate, each
-    held against the plain step) and as one whole fixpoint; then the
-    device gates, the contracted-merge form and the union-find form.
-    Returns the check record, the inputs kept for timing and the steps of
-    each case's fixpoint."""
+    held against the plain step; the steps counted), then as one whole
+    fixpoint (the fixpoint body) in 3 shuffled edge orders; then the
+    device gates, the contracted merge at the graph's pending shape (live
+    prefixes shuffled 3 times), the relabel form on both sides of
+    ``SMALL_E`` and the union-find form.
+    Returns the check record, the inputs kept for timing and the
+    propagation steps of each case's fixpoint."""
     from repro_torch.kernels.label_prop import propagate_plain
+    from repro_torch.kernels.label_prop.ops import SMALL_E
 
     chk = LabelPropCheck()
     rng = np.random.default_rng([seed, 8])
@@ -739,73 +763,108 @@ def label_prop_phase(torch, dev, seed, n):
     timed = {}
     steps = {}
     for name, eu, ev, kw in label_prop_cases(torch, dev, seed, n):
-        l = ident.clone()
+        l, count = ident.clone(), 0
         while True:                          # every step of the fixpoint
             l2, _ = chk(eu, ev, torch.empty_like(l), init=l, max_iters=1,
                         **kw)
+            count += 1
             if torch.equal(l2, l):
                 break
             l = l2
-        fixed, iters = chk(eu, ev, torch.empty_like(l), **kw)
-        check(torch.equal(fixed, l), f"label_prop {name}: the fixpoint "
-                                     f"differs from its steps")
-        steps[name] = iters
+        steps[name] = count
+        for _ in range(3):                   # the fixpoint, 3 edge orders
+            su, sv, skw = _shuffled(torch, rng, eu, ev, kw)
+            fixed, ret = chk(su, sv, torch.empty_like(l), **skw)
+            check(ret == 1 and torch.equal(fixed, l),
+                  f"label_prop {name}: the fixpoint differs from its steps")
+        if name == "chain":
+            timed["chain"] = dict(eu=eu, ev=ev)
         if name == "tree buffer":
-            timed = dict(eu=eu, ev=ev, valid=kw["valid"], labels=fixed,
-                         iters=iters)
+            timed.update(eu=eu, ev=ev, valid=kw["valid"], labels=fixed,
+                         iters=count)
             # the read pass's gates: when / unless decide on the device
             chk(eu, ev, ident.clone(), when=yes, **kw)
             chk(eu, ev, ident.clone(), when=no, **kw)
             chk(eu, ev, ident.clone(), unless=yes, **kw)
+            chk(eu, ev, ident.clone(), init=ident, when=no, **kw)
     # the contracted-merge form: pending inserts of other tree edges into
-    # the tree buffer's labels, the live lanes counted on the device
+    # the tree buffer's labels, the live lanes counted on the device; then
+    # the relabel form past the merge body's slots (the fixpoint body)
     eu, ev, valid, base = (timed[k] for k in ("eu", "ev", "valid",
                                               "labels"))
-    width = 2 * C_MAX + 1
     tu, tv = random_tree(np.random.default_rng([seed, 7]), n)
-    for k in (1, 5, 2 * C_MAX, 0):
-        pick = rng.integers(0, n - 1, width)
-        pend = np.stack([rng.integers(0, n, width),
-                         rng.integers(0, n, width)]).astype(np.int32)
-        pend[0, :k], pend[1, :k] = tu[pick[:k]], tv[pick[:k]]
-        pend = torch.from_numpy(pend).to(dev)
-        live = torch.full((), k, dtype=torch.int32, device=dev)
-        merged, _ = chk(pend[0], pend[1], base.clone(), e_live=live,
-                        relabel=True, unless=no)
-        if not k:
-            continue
-        timed["merge"] = dict(pu=pend[0], pv=pend[1], live=live,
-                              labels=base)
-        for m_it in (1, 2):                  # steps of the contracted graph
+    for width, lives in ((2 * C_MAX + 1, (1, 5, 2 * C_MAX, 0)),
+                         (SMALL_E, (SMALL_E,)), (SMALL_E + 1, (SMALL_E,))):
+        for k in lives:
+            pick = rng.integers(0, n - 1, width)
+            pend = np.stack([rng.integers(0, n, width),
+                             rng.integers(0, n, width)]).astype(np.int32)
+            pend[0, :k], pend[1, :k] = tu[pick[:k]], tv[pick[:k]]
+            pend = torch.from_numpy(pend).to(dev)
+            live = torch.full((), k, dtype=torch.int32, device=dev)
+            merged = None
+            for _ in range(3):               # live prefixes reordered
+                pu, pv, _ = _shuffled(torch, rng, pend[0], pend[1], {}, k)
+                got, _ = chk(pu, pv, base.clone(), e_live=live,
+                             relabel=True, unless=no)
+                check(merged is None or torch.equal(got, merged),
+                      "label_prop: the merge depends on the slot order")
+                merged = got
             chk(pend[0], pend[1], base.clone(), e_live=live, relabel=True,
-                max_iters=m_it)
-        full = torch.empty_like(base)
-        propagate_plain(torch.cat([eu[valid], pend[0, :k]]),
-                        torch.cat([ev[valid], pend[1, :k]]), full)
-        check(torch.equal(merged, full),
-              "label_prop: the merge form != the full rebuild")
-    # the union-find form: ≤ c_max unions (chain and random) on a labeling
+                unless=yes)
+            if not k:
+                continue
+            if width == 2 * C_MAX + 1:
+                timed["merge"] = dict(pu=pend[0], pv=pend[1], live=live,
+                                      labels=base, changed=int(
+                                          (merged != base).sum()))
+                for m_it in (1, 2):          # steps of the contracted graph
+                    chk(pend[0], pend[1], base.clone(), e_live=live,
+                        relabel=True, max_iters=m_it)
+            full = torch.empty_like(base)
+            propagate_plain(torch.cat([eu[valid], pend[0, :k]]),
+                            torch.cat([ev[valid], pend[1, :k]]), full)
+            check(torch.equal(merged, full),
+                  "label_prop: the merge form != the full rebuild")
+    # the union-find form: ≤ c_max unions (chain and random) on a labeling,
+    # each batch in 3 orders
     uf = base.clone()
-    for _ in range(4):
+    for b in range(4):
         u = rng.integers(0, n, C_MAX)
         v = np.where(rng.random(C_MAX) < 0.5, (u + 1) % n,
                      rng.integers(0, n, C_MAX))
-        uf, _ = chk(torch.from_numpy(u.astype(np.int32)).to(dev),
-                    torch.from_numpy(v.astype(np.int32)).to(dev), uf,
-                    relabel=True)
+        u = torch.from_numpy(u.astype(np.int32)).to(dev)
+        v = torch.from_numpy(v.astype(np.int32)).to(dev)
+        prev, nxt = uf, None
+        for _ in range(3):
+            su, sv, _ = _shuffled(torch, rng, u, v, {})
+            got, _ = chk(su, sv, prev.clone(), relabel=True)
+            check(nxt is None or torch.equal(got, nxt),
+                  "label_prop: the union-find form depends on the order")
+            nxt = got
+        if b == 0:
+            timed["uf"] = dict(pu=u, pv=v, labels=prev,
+                               changed=int((nxt != prev).sum()))
+        uf = nxt
     check(chk.calls >= 50, f"label_prop: only {chk.calls} checked launches")
     return chk, timed, steps
 
 
 def time_label_prop(torch, timed):
     """Per-launch times (``_per_launch_ms``) at the graph's full-rebuild
-    shape: the whole fixpoint (``ms``), one step from the identity, and
-    the contracted merge of a pending batch; the plain versions beside
-    them.  The bound counts each input once and each output once (the
-    fixpoint: eu, ev, valid in, labels out; a step: its labels in as
-    well) over 3.35 TB/s, against a min and a compare per edge endpoint
-    and per vertex per step over 67 TOP/s."""
+    shape: the whole fixpoint by the fixpoint body (``ms``) and, for
+    comparison in the same run, by the step body (``step_fixpoint_ms``,
+    the full rebuild before the fixpoint body); the fixpoint body on the
+    chain; one step from the identity; the contracted merge at the graph's
+    pending shape (33 slots, 32 live); the union-find form's 16 unions; each body gated off;
+    the plain versions beside them.  The bounds count each input once and
+    each output once over 3.35 TB/s (the fixpoint: eu, ev, valid in,
+    labels out; a step: its labels in as well; a merge: the labels in,
+    the live slots' endpoints and the labels it changes), against a min
+    and a compare per edge endpoint and per vertex (one pass for the
+    fixpoint, one per step) over 67 TOP/s."""
     from repro_torch.kernels.label_prop import propagate, propagate_plain
+    from repro_torch.kernels.label_prop.ops import propagate_body
 
     eu, ev, valid, iters = (timed[k] for k in ("eu", "ev", "valid",
                                                "iters"))
@@ -815,32 +874,79 @@ def time_label_prop(torch, timed):
     no = torch.zeros((), dtype=torch.bool, device=eu.device)
     ring = [torch.empty_like(ident) for _ in range(RING)]
     plain_ring = ring[:PLAIN_RING]
-    m = timed["merge"]
+    m, uf, ch = timed["merge"], timed["uf"], timed["chain"]
+
+    def merge(fn, rec, **kw):
+        return lambda r: fn(rec["pu"], rec["pv"], r, relabel=True, **kw)
+
+    def held(fn, a_in=ident):
+        return _per_launch_ms(torch, fn, ring, a_in, hold=True)
+
     out = {
-        "ms": _per_launch_ms(torch, lambda r: propagate(
-            eu, ev, r, valid=valid, when=yes), ring, ident, hold=True),
+        "ms": held(lambda r: propagate(eu, ev, r, valid=valid, when=yes)),
+        "step_fixpoint_ms": held(lambda r: propagate_body(
+            "step", eu, ev, r, valid=valid, when=yes)),
         "plain_ms": _per_launch_ms(torch, lambda r: propagate_plain(
             eu, ev, r, valid=valid, when=yes), plain_ring, ident,
             hold=False),
-        "step_ms": _per_launch_ms(torch, lambda r: propagate(
-            eu, ev, r, init=ident, valid=valid, max_iters=1), ring, ident,
-            hold=True),
+        "chain_ms": held(lambda r: propagate(ch["eu"], ch["ev"], r)),
+        "gated_off_ms": held(lambda r: propagate(eu, ev, r, valid=valid,
+                                                 when=no)),
+        "step_ms": held(lambda r: propagate(
+            eu, ev, r, init=ident, valid=valid, max_iters=1)),
         "step_plain_ms": _per_launch_ms(torch, lambda r: propagate_plain(
             eu, ev, r, init=ident, valid=valid, max_iters=1), plain_ring,
             ident, hold=False),
-        "merge_ms": _per_launch_ms(torch, lambda r: propagate(
-            m["pu"], m["pv"], r, e_live=m["live"], relabel=True,
-            unless=no), ring, m["labels"], hold=True),
-        "fixpoint_steps": iters, "n": n, "edge_slots": E,
-        "live_edges": int(valid.sum()), "library_ms": None,
+        "merge_ms": held(merge(propagate, m, e_live=m["live"], unless=no),
+                         m["labels"]),
+        "merge_plain_ms": _per_launch_ms(torch, merge(
+            propagate_plain, m, e_live=m["live"], unless=no), plain_ring,
+            m["labels"], hold=False),
+        "merge_gated_off_ms": held(merge(propagate, m, e_live=m["live"],
+                                         unless=yes), m["labels"]),
+        "uf_merge_ms": held(merge(propagate, uf), uf["labels"]),
+        "tree_steps": iters, "n": n, "edge_slots": E,
+        "live_edges": int(valid.sum()), "merge_slots": m["pu"].numel(),
+        "merge_live": int(m["live"]), "merge_changed": m["changed"],
+        "uf_unions": uf["pu"].numel(), "uf_changed": uf["changed"],
+        "library_ms": None,
     }
     byte_ms = (9 * E + 1 + 4 * n) / HBM_BYTES_PER_S * 1e3
-    op_ms = iters * 2 * (2 * E + n) / F32_OPS_PER_S * 1e3
+    op_ms = 2 * (2 * E + n) / F32_OPS_PER_S * 1e3
     out["bound_ms"] = max(byte_ms, op_ms)
     out["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     out["step_bound_ms"] = max((9 * E + 8 * n) / HBM_BYTES_PER_S * 1e3,
                                2 * (2 * E + n) / F32_OPS_PER_S * 1e3)
+    out["merge_bound_ms"] = (4 * n + 8 * out["merge_live"] + 4
+                             + 4 * m["changed"]) / HBM_BYTES_PER_S * 1e3
+    out["uf_bound_ms"] = (4 * n + 8 * out["uf_unions"]
+                          + 4 * uf["changed"]) / HBM_BYTES_PER_S * 1e3
     return out
+
+
+def label_prop_line(chk, steps, t, seconds):
+    """The ``kernels: label_prop`` line of phase 6 (and ``--label-prop``)."""
+    return (
+        f"kernels: label_prop == plain on {chk.calls} launches (max_abs_err "
+        f"{chk.max_abs_err}; propagation steps to the fixpoint {steps}; "
+        f"{seconds:.1f} s); " + (
+            "timing not measured" if not t else
+            f"full rebuild ms {t['ms']:.6f} (fixpoint body; n {t['n']}, "
+            f"{t['edge_slots']} edge slots, {t['live_edges']} live) "
+            f"bound_ms {t['bound_ms']:.3e} ({t['bound_by']}), by the step "
+            f"body {t['step_fixpoint_ms']:.6f} ({t['tree_steps']} "
+            f"steps), plain_ms {t['plain_ms']:.6f}; chain ms "
+            f"{t['chain_ms']:.6f}; gated off ms {t['gated_off_ms']:.6f}; "
+            f"step ms {t['step_ms']:.6f} plain {t['step_plain_ms']:.6f} "
+            f"bound {t['step_bound_ms']:.3e}; merge ms {t['merge_ms']:.6f} "
+            f"({t['merge_slots']} slots, {t['merge_live']} live, "
+            f"{t['merge_changed']} labels changed; plain "
+            f"{t['merge_plain_ms']:.6f}; gated off "
+            f"{t['merge_gated_off_ms']:.6f}) bound "
+            f"{t['merge_bound_ms']:.3e}; union-find merge ms "
+            f"{t['uf_merge_ms']:.6f} ({t['uf_unions']} unions, "
+            f"{t['uf_changed']} labels changed) bound "
+            f"{t['uf_bound_ms']:.3e}; library_ms None"))
 
 
 # ---------------------------------------------------------------------------
@@ -2822,9 +2928,10 @@ def _profile(torch, name, one, n_passes, what, out):
     launches = sum(e.count for e in ka if e.key in LAUNCH_CALLS)
     memcpy = sum(e.count for e in ka if e.key.startswith("cudaMemcpy"))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    ours = [f"{k} {e.self_device_time_total / e.count:.3f} us/launch "
-            f"x {e.count}" for k in REPLACES for e in rows
-            if f"{k}_kernel(" in e.key and e.count]
+    ours = [f"{m.group(0)[:-1]} {e.self_device_time_total / e.count:.3f} "
+            f"us/launch x {e.count}" for e in rows if e.count
+            for m in [re.search(r"\b(%s)(_\w+)?_kernel\(" % "|".join(
+                REPLACES), e.key)] if m]
     out(f"profile {name}: single-thread pass {host_ms:.3f} ms (host "
         f"clock, {n_passes} passes of {what}); under the profiler "
         f"{prof_wall * 10:.3f} ms/pass wall, device "
@@ -3014,18 +3121,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     checked.max_abs_err["label_prop"] = lp_chk.max_abs_err
     if timing:
         times["label_prop"] = time_label_prop(torch, lp_timed)
-    t = times.get("label_prop", {})
-    out(f"kernels: label_prop == plain on {lp_chk.calls} launches (max_abs_"
-        f"err {lp_chk.max_abs_err}; fixpoint steps {lp_steps}; "
-        f"{time.perf_counter() - t0:.1f} s); " + (
-            "timing not measured" if not t else
-            f"full rebuild ms {t['ms']:.6f} ({t['fixpoint_steps']} steps, "
-            f"n {t['n']}, {t['edge_slots']} edge slots, {t['live_edges']} "
-            f"live) plain_ms {t['plain_ms']:.6f} bound_ms "
-            f"{t['bound_ms']:.3e} ({t['bound_by']}); step ms "
-            f"{t['step_ms']:.6f} plain {t['step_plain_ms']:.6f} bound "
-            f"{t['step_bound_ms']:.3e}; merge ms {t['merge_ms']:.6f}; "
-            f"library_ms None"))
+    times.setdefault("label_prop", {})["fixpoint_steps"] = lp_steps
+    out(label_prop_line(lp_chk, lp_steps, times["label_prop"] if timing
+                        else {}, time.perf_counter() - t0))
     t0 = time.perf_counter()
     map_cap = shard_capacity(map_keys + threads * map_ops + 2, 4)
     sm_chk, sm_timed = sorted_merge_phase(torch, dev, seed, map_cap,
@@ -3286,8 +3384,11 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         }
         if name == "label_prop":
             rec.update({k: t.get(k) for k in (
-                "step_ms", "step_plain_ms", "step_bound_ms", "merge_ms",
-                "fixpoint_steps")})
+                "step_fixpoint_ms", "chain_ms", "gated_off_ms", "step_ms",
+                "step_plain_ms", "step_bound_ms", "merge_ms",
+                "merge_plain_ms",
+                "merge_gated_off_ms", "merge_bound_ms", "uf_merge_ms",
+                "uf_bound_ms", "fixpoint_steps")})
         if name == "flash_attention":
             rec.update({k: t.get(k) for k in (
                 "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
@@ -3322,6 +3423,16 @@ def build_line(out=print):
             for src, n, r, st, ld in ptxas_report(log, cufilt)))
 
 
+def label_prop_only(torch, seed):
+    """``--label-prop``: phases 2 and 6 alone, for work on ``label_prop``."""
+    build_line()
+    t0 = time.perf_counter()
+    chk, timed, steps = label_prop_phase(torch, torch.device("cuda"), seed,
+                                         GRAPH_VERTICES)
+    print(label_prop_line(chk, steps, time_label_prop(torch, timed),
+                          time.perf_counter() - t0))
+
+
 def scan_only(torch, seed):
     """``--scan``: phases 2 and 15 alone, for work on the scan kernels."""
     build_line()
@@ -3340,6 +3451,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scan", action="store_true",
                     help="only the build and the linear_scan kernel checks "
                          "and timings (phases 2 and 15)")
+    ap.add_argument("--label-prop", action="store_true",
+                    help="only the build and the label_prop kernel checks "
+                         "and timings (phases 2 and 6)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3369,6 +3483,9 @@ def main(argv=None) -> int:
         return 0
     if args.scan:
         scan_only(torch, args.seed)
+        return 0
+    if args.label_prop:
+        label_prop_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

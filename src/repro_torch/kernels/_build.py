@@ -65,10 +65,12 @@ SIGNATURES = {
     "heap_sift_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # a, size, rem, m_left, K, cap, C, size_out, stream
     "heap_insert_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # n, eu, ev, E, valid, e_live, init, relabel, when, unless, io,
+    # body, n, eu, ev, E, valid, e_live, init, relabel, when, unless, io,
     # scratch, ctrl, max_iters, stream
-    "label_prop_launch": [_I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                          _P, _I, _P],
+    "label_prop_launch": [_I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _I, _P],
+    # body, n -> int32 words of scratch
+    "label_prop_scratch_words": [_I, _I],
     # K, N, C, a_keys, its row stride, a_vals, stride, keep, stride,
     # b_keys, stride, b_vals, stride, b_count, out keys, stride, out vals,
     # stride, scratch, stream

@@ -7,17 +7,39 @@ scatter-min over edges of ``min(l[u], l[v])``, then ``l' = min(s, l[s])``
 — the pointer jump reads the OLD labels.  Iterated from the identity, the
 labels converge to the component-min id (labels only decrease, ``l[x] ≤
 x`` is invariant, and the min vertex of every component is a fixpoint of
-both the hook and the jump).
+both the hook and the jump).  That fixpoint is unique, so any algorithm
+that computes the component-min labelling reaches it bit for bit.
 
 :func:`propagate` is the one entry point; it picks its path from the
-output tensor's device: a CUDA tensor launches the kernel, which runs the
-whole fixpoint (or ``max_iters`` steps) in ONE cooperative launch, or
-raises; a CPU tensor runs :func:`propagate_plain`.  ``propagate.launches``
-counts kernel launches.  The reference's three layers are thin calls to
-it: :func:`label_step` (``max_iters=1``), :func:`connected_components`
-(the full fixpoint from the identity) and :func:`merge_labels` (the
-union-find fast path: the fixpoint of the CONTRACTED graph whose vertices
-are the current labels, composed with them).
+output tensor's device: a CUDA tensor launches the kernel (ONE launch a
+call) or raises; a CPU tensor runs :func:`propagate_plain`.
+``propagate.launches`` counts kernel launches.  The kernel has three
+bodies, and :func:`pick_body` chooses one from the form of the call and
+the edge slot count the host already knows:
+
+- ``"step"`` — ``init`` given or ``max_iters < MAX_ITERS``: the iteration
+  above, stepped inside one cooperative launch until a step changes
+  nothing or ``max_iters`` steps ran.
+- ``"fixpoint"`` — the whole fixpoint from the identity (the graph's full
+  rebuild; the relabel form of more than :data:`SMALL_E` slots): a
+  concurrent union-find that links the larger root under the smaller, so
+  every root is its tree's least vertex — the component-min labelling
+  whatever order its atomics land in.
+- ``"merge"`` — the relabel form of at most :data:`SMALL_E` slots (the
+  graph's pending inserts, the union-find's ≤ c_max unions): the union-find
+  of the ≤ 2·SMALL_E endpoint labels, built in shared memory, then one
+  pass over the labels that rewrites only those whose root differs.
+
+The return value: the step form returns the number of steps run; the
+fixpoint forms (``"fixpoint"``, ``"merge"``) return 1 when they ran and 0
+when gated off or when the relabel form has no live slot.  The plain
+version returns the same.
+
+The reference's three layers are thin calls to :func:`propagate`:
+:func:`label_step` (``max_iters=1``), :func:`connected_components` (the
+full fixpoint from the identity) and :func:`merge_labels` (the union-find
+fast path: the fixpoint of the CONTRACTED graph whose vertices are the
+current labels, composed with them).
 
 The reference pads the vertex set to ``n_shards`` blocks and the edges to
 the TPU kernel's streaming chunk; neither padding changes the result, and
@@ -32,6 +54,9 @@ import torch
 from .. import _build
 
 MAX_ITERS = 2 ** 31 - 1       # "to the fixpoint": int32 max
+SMALL_E = 64                  # csrc/label_prop.cu's kSmallE: the most edge
+                              # slots the merge body takes
+BODIES = {"step": 0, "fixpoint": 1, "merge": 2}
 
 
 def label_step_plain(labels: torch.Tensor, eu: torch.Tensor,
@@ -71,10 +96,12 @@ def propagate_plain(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor,
                     unless: Optional[torch.Tensor] = None,
                     max_iters: int = MAX_ITERS) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device (it reads the
-    gates and the change test on the host).  Arguments as
-    :func:`propagate`; returns the iteration count as a () int32 tensor."""
+    gates and the change test on the host).  Arguments and return value as
+    :func:`propagate`: the step form returns the steps run, the fixpoint
+    forms 1 when they ran (it steps them to the fixpoint all the same)."""
     dev = out.device
     none = torch.zeros((), dtype=torch.int32, device=dev)
+    fixpoint = init is None and max_iters == MAX_ITERS
     if when is not None and not bool(when):
         return none
     if unless is not None and bool(unless):
@@ -99,11 +126,22 @@ def propagate_plain(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor,
         if not more:
             break
     out.copy_(l[cur] if relabel else l)
-    return torch.full((), it, dtype=torch.int32, device=dev)
+    return torch.full((), 1 if fixpoint else it, dtype=torch.int32,
+                      device=dev)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def pick_body(E: int, *, init: Optional[torch.Tensor] = None,
+              relabel: bool = False, max_iters: int = MAX_ITERS) -> str:
+    """The kernel body a call of ``E`` edge slots runs: ``"step"`` when
+    ``init`` is given or ``max_iters < MAX_ITERS``, else ``"merge"`` for the
+    relabel form of at most :data:`SMALL_E` slots, else ``"fixpoint"``."""
+    if init is not None or max_iters < MAX_ITERS:
+        return "step"
+    return "merge" if relabel and E <= SMALL_E else "fixpoint"
 
 
 def propagate(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor, *,
@@ -127,12 +165,39 @@ def propagate(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor, *,
     device, so the host reads neither.  Stops after the first step that
     changes nothing, or after ``max_iters`` steps.
 
-    Returns the number of steps run, a () int32 tensor on ``out``'s
-    device (0 when gated off), without synchronising."""
+    The body is :func:`pick_body`'s.  Returns a () int32 tensor on
+    ``out``'s device, without synchronising: the step form's number of
+    steps run (0 when gated off); for the fixpoint forms (no ``init``,
+    ``max_iters == MAX_ITERS``) 1 when the launch ran and 0 when gated off
+    or when the relabel form has no live slot."""
     if out.device.type == "cpu":
         return propagate_plain(eu, ev, out, init=init, valid=valid,
                                e_live=e_live, relabel=relabel, when=when,
                                unless=unless, max_iters=max_iters)
+    body = pick_body(eu.numel(), init=init, relabel=relabel,
+                     max_iters=max_iters)
+    ret = propagate_body(body, eu, ev, out, init=init, valid=valid,
+                         e_live=e_live, relabel=relabel, when=when,
+                         unless=unless, max_iters=max_iters)
+    propagate.launches += 1
+    return ret
+
+
+propagate.launches = 0
+
+
+def propagate_body(body: str, eu: torch.Tensor, ev: torch.Tensor,
+                   out: torch.Tensor, *,
+                   init: Optional[torch.Tensor] = None,
+                   valid: Optional[torch.Tensor] = None,
+                   e_live: Optional[torch.Tensor] = None,
+                   relabel: bool = False,
+                   when: Optional[torch.Tensor] = None,
+                   unless: Optional[torch.Tensor] = None,
+                   max_iters: int = MAX_ITERS) -> torch.Tensor:
+    """One launch of one body (a key of :data:`BODIES`) on CUDA tensors;
+    counts nothing.  :func:`propagate` picks the body; this is for timing
+    one body against another on the card."""
     dev = out.device
     n, E = out.numel(), eu.numel()
     if n < 1:
@@ -141,6 +206,14 @@ def propagate(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor, *,
         raise ValueError(f"max_iters must lie in [0, {MAX_ITERS}]")
     if relabel and init is not None:
         raise ValueError("the relabel form starts from the identity")
+    if body not in BODIES:
+        raise ValueError(f"unknown label_prop body {body!r}")
+    if body != "step" and (init is not None or max_iters != MAX_ITERS):
+        raise ValueError(f"the {body} body runs to the fixpoint from the "
+                         "identity")
+    if body == "merge" and not (relabel and E <= SMALL_E):
+        raise ValueError(f"the merge body takes the relabel form of at "
+                         f"most {SMALL_E} edge slots")
     _build.require(out, "out", torch.int32, (n,), dev)
     _build.require(eu, "eu", torch.int32, (E,), dev)
     _build.require(ev, "ev", torch.int32, (E,), dev)
@@ -151,19 +224,18 @@ def propagate(eu: torch.Tensor, ev: torch.Tensor, out: torch.Tensor, *,
                                   (unless, "unless", torch.bool, ())):
         if t is not None:
             _build.require(t, name, dtype, shape, dev)
-    scratch = torch.empty(3 * n, dtype=torch.int32, device=dev)
-    ctrl = torch.zeros(4, dtype=torch.int32, device=dev)
-    rc = _build.library().label_prop_launch(
-        n, eu.data_ptr(), ev.data_ptr(), E, _ptr(valid), _ptr(e_live),
+    lib = _build.library()
+    code = BODIES[body]
+    scratch = torch.empty(max(lib.label_prop_scratch_words(code, n), 1),
+                          dtype=torch.int32, device=dev)
+    ctrl = torch.empty(4, dtype=torch.int32, device=dev)
+    rc = lib.label_prop_launch(
+        code, n, eu.data_ptr(), ev.data_ptr(), E, _ptr(valid), _ptr(e_live),
         _ptr(init), int(bool(relabel)), _ptr(when), _ptr(unless),
         out.data_ptr(), scratch.data_ptr(), ctrl.data_ptr(), int(max_iters),
         _build.stream(dev))
-    _build.check(rc, "label_prop")
-    propagate.launches += 1
+    _build.check(rc, f"label_prop ({body})")
     return ctrl[0]
-
-
-propagate.launches = 0
 
 
 def label_step(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor, *,
@@ -198,6 +270,6 @@ def merge_labels(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
     return out
 
 
-__all__ = ["MAX_ITERS", "connected_components", "label_step",
-           "label_step_plain", "merge_labels", "propagate",
-           "propagate_plain"]
+__all__ = ["BODIES", "MAX_ITERS", "SMALL_E", "connected_components",
+           "label_step", "label_step_plain", "merge_labels", "pick_body",
+           "propagate", "propagate_body", "propagate_plain"]
