@@ -14,12 +14,16 @@ each printing a line:
    CUDA tensors at the main path's shapes (4,000,000 keys; K = 1 and
    K = 4 shards; c_max = 16) over seeded random heaps and batches — empty
    heaps, ``ne > size``, ``m = 0`` shards, chunks crossing a level
-   boundary, duplicate keys — each result held element-wise (exactly:
-   keys are only compared and moved) against the kernel's plain PyTorch
-   version on the same inputs; then per-launch times from CUDA events
-   around 30 back-to-back launches (median of 5 such windows), the plain
-   version's time, the bound, and for ``heap_kmin`` the ``torch.topk``
-   yardstick.
+   boundary, duplicate keys — and, past ``C_MAX``, ``heap_insert`` at
+   widths 1, 32, 33 and 64 (near-empty heaps whose batch takes several
+   level-chunks among them) and ``heap_sift`` with 33, 64 and 1,024
+   cursors on real frontiers (:func:`wide_cases`), each result held
+   element-wise (exactly: keys are only compared and moved) against the
+   kernel's plain PyTorch version on the same inputs; then per-launch
+   times from CUDA events around 30 back-to-back launches (median of 5
+   such windows), the plain version's time, the bound, and for
+   ``heap_kmin`` the ``torch.topk`` yardstick.  ``python3 chip_smoke.py
+   --heap`` runs phases 2 and 3 alone.
 4. ``pq-single`` — ``pc_priority_queue(BatchedPriorityQueue(...))`` and
 5. ``pq-sharded`` — ``pc_sharded_priority_queue(..., n_shards=4)``: 8
    client threads of 50/50 insert/extract_min over 4,000,000 initial keys,
@@ -190,6 +194,7 @@ N_KEYS = 4_000_000             # initial keys of the pq phases
 THREADS = 8
 OPS_PER_THREAD = 200           # pq phases (depth cut to fit the run)
 REPLAY_BATCHES = 240
+KERNEL_CASES = 24              # checked passes a heap shape, K = 1 and 4
 GRAPH_VERTICES = 1_000_000     # graph, unionfind and label_prop checks
 GRAPH_OPS = 300                # per thread, graph and unionfind phases
 READ_PCT = 90                  # bench_graph / bench_unionfind c = 90
@@ -250,6 +255,7 @@ class CheckedPhases:
         self.calls = {"heap_kmin": 0, "heap_sift": 0, "heap_insert": 0}
         self.max_abs_err = dict.fromkeys(self.calls, 0.0)
         self.inputs = {}
+        self.wide = {}      # wide_cases' launches among the calls: widths
 
     def _diff(self, kernel, what, got, want):
         """Record the largest |kernel - plain| over the outputs checked so
@@ -346,8 +352,66 @@ def pick_sizes(rng, K, cap, c_max):
     return out
 
 
+INSERT_WIDTHS = (1, 32, 33, 64)   # heap_insert: one and two values a lane
+SIFT_WIDTHS = (33, 64, 1024)      # heap_sift: two warps to heap_sift.MAX_C
+NEAR_EMPTY = (0, 1, 2, 3, 6, 7)   # sizes whose batches take several chunks
+
+
+def wide_cases(torch, dev, rng, gen, cap, checked, K=4):
+    """Widths past the pass's C_MAX, each launch held bit-equal to the
+    plain version by ``checked``: ``heap_insert`` at every width of
+    INSERT_WIDTHS on K shards of ``cap`` slots -- near-empty heaps (a
+    batch of C takes several level-chunks), heaps one batch short of a
+    level's end and large ones, m_left from 0 to C with duplicates --, and
+    ``heap_sift`` with SIFT_WIDTHS cursors on real frontiers (the plain
+    phase 1 and 2 at c_max = c, ``ne`` = c).  Returns the widths of the
+    launches made, by kernel."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.kernels import heap_kmin
+
+    done = {"heap_insert": [], "heap_sift": []}
+    for C in INSERT_WIDTHS:
+        for case in range(3):
+            if case == 0:
+                sizes = [int(rng.choice(NEAR_EMPTY)) for _ in range(K)]
+            else:
+                sizes = pick_sizes(rng, K, cap, max(C, 2))
+            a, size = random_heap_stack(torch, K, cap, sizes, gen,
+                                        dup=case == 1, dev=dev)
+            m = [C if case == 0 else int(rng.integers(0, C + 1))
+                 for _ in range(K)]
+            m[-1] = C
+            vals = np.floor(rng.uniform(0, 2e6, (K, C))).astype(np.float32)
+            vals[:, ::3] = vals[:, :1]                       # duplicates
+            vals[np.arange(C)[None, :] >= np.array(m)[:, None]] = np.inf
+            rem = torch.tensor(np.sort(vals, axis=1), device=dev)
+            checked.phase4(a, size, rem,
+                           torch.tensor(m, dtype=torch.int32, device=dev))
+            done["heap_insert"].append(C)
+    for c in SIFT_WIDTHS:
+        top = cap - 1 - c
+        if top < 4 * c:              # the host rehearsal's small heaps
+            continue
+        sizes = [top - int(rng.integers(0, 1000)) for _ in range(K)]
+        a, size = random_heap_stack(torch, K, cap, sizes, gen, dup=True,
+                                    dev=dev)
+        ni = int(rng.integers(0, c // 2))
+        vals = torch.full((K, c), math.inf, device=dev)
+        vals[:, :ni] = torch.floor(torch.rand((K, ni), generator=gen,
+                                              device=dev) * 2e6)
+        phase1 = heap_kmin.k_smallest_plain(a, size, c, c)
+        lanes = torch.full((K,), c, dtype=torch.int32, device=dev)
+        a2, size2, _, _, starts, active, _, _ = bpq._phases12(
+            a, size, lanes, vals, torch.full_like(lanes, ni), c_max=c,
+            phase1=phase1, n_pull=c)
+        checked.sift(a2, size2, starts, active)
+        done["heap_sift"].append(c)
+    return done
+
+
 def kernel_phase(torch, dev, seed, caps, n_cases):
-    """Random heaps and batches through checked passes, K = 1 and K = 4."""
+    """Random heaps and batches through checked passes, K = 1 and K = 4,
+    then :func:`wide_cases` at the K = 4 shape."""
     from repro_torch.core import batched_pq as bpq
     from repro_torch.core import sharded_pq as spq
 
@@ -380,9 +444,10 @@ def kernel_phase(torch, dev, seed, caps, n_cases):
                 st = spq.ShardedHeapState(a, size)
                 spq._sharded_apply_batch(st, ne, vals, ni, c_max=C_MAX,
                                          n_shards=K, phases=phases)
+    K, cap = caps[-1]
+    checked.wide = wide_cases(torch, dev, rng, gen, cap, checked, K)
     # dedicated batches at the K = 4 shape for timing: extract-only keeps
     # heap_kmin and heap_sift inputs, insert-only the heap_insert inputs
-    K, cap = caps[-1]
     sizes = [cap - 1 - C_MAX - int(rng.integers(0, 1000)) for _ in range(K)]
     a, size = random_heap_stack(torch, K, cap, sizes, gen, dup=False,
                                 dev=dev)
@@ -437,6 +502,35 @@ def _per_launch_ms(torch, fn, ring, a_in, hold, windows=WINDOWS):
                                  "host inside a held window")
             times.append(t0.elapsed_time(t1) / len(ring))
     return float(np.median(times))
+
+
+def pq_capacities(n_keys, threads, ops, n_replay):
+    """The per-shard capacities of the pq phases, K = 1 and K = 4."""
+    total = n_keys + threads * ops + n_replay * C_MAX + 2
+    return shard_capacity(total, 1), shard_capacity(total, 4)
+
+
+def heap_phase(torch, dev, seed, cap1, cap4, n_cases, timing, out=print):
+    """Phase 3: :func:`kernel_phase` (with :func:`wide_cases`), then with
+    ``timing`` :func:`time_kernels`; prints one line a heap kernel.
+    Returns (the checks, the times)."""
+    t0 = time.perf_counter()
+    checked, timed = kernel_phase(torch, dev, seed, [(1, cap1), (4, cap4)],
+                                  n_cases)
+    times = time_kernels(torch, timed) if timing else {}
+    for name in ("heap_kmin", "heap_sift", "heap_insert"):
+        t = times.get(name, {})
+        w = checked.wide.get(name)
+        wide = (f", {len(w)} of them at widths {sorted(set(w))}" if w
+                else "")
+        out(f"kernels: {name} == plain on {checked.calls[name]} launches"
+            f"{wide} (max_abs_err {checked.max_abs_err[name]}; heap kernels "
+            f"{time.perf_counter() - t0:.1f} s); "
+            + ("timing not measured" if not t else
+               f"ms {t['ms']:.6f} plain_ms {t['plain_ms']:.6f} "
+               f"bound_ms {t['bound_ms']:.3e} ({t['bound_by']}) "
+               f"library_ms {t['library_ms']}"))
+    return checked, times
 
 
 def time_kernels(torch, timed):
@@ -3059,7 +3153,8 @@ def profile_passes(seed=0, n_keys=N_KEYS, n_passes=300, width=4,
 
 
 def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
-        ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES, n_cases=24,
+        ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES,
+        n_cases=KERNEL_CASES,
         graph_vertices=GRAPH_VERTICES, graph_ops=GRAPH_OPS,
         graph_replay=GRAPH_REPLAY, uf_replay=UF_REPLAY, map_keys=MAP_KEYS,
         map_ops=MAP_OPS, map_replay=MAP_REPLAY, sketch_replay=SKETCH_REPLAY,
@@ -3097,23 +3192,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     if dev.type == "cuda":
         build_line(out)
 
-    extra = n_replay * C_MAX + 2
-    total = n_keys + threads * ops + extra
-    cap1 = shard_capacity(total, 1)
-    cap4 = shard_capacity(total, 4)
-    t0 = time.perf_counter()
-    checked, timed = kernel_phase(torch, dev, seed, [(1, cap1), (4, cap4)],
-                                  n_cases)
-    times = time_kernels(torch, timed) if timing else {}
-    for name in ("heap_kmin", "heap_sift", "heap_insert"):
-        t = times.get(name, {})
-        out(f"kernels: {name} == plain on {checked.calls[name]} passes "
-            f"(max_abs_err {checked.max_abs_err[name]}; heap kernels "
-            f"{time.perf_counter() - t0:.1f} s); "
-            + ("timing not measured" if not t else
-               f"ms {t['ms']:.6f} plain_ms {t['plain_ms']:.6f} "
-               f"bound_ms {t['bound_ms']:.3e} ({t['bound_by']}) "
-               f"library_ms {t['library_ms']}"))
+    cap1, cap4 = pq_capacities(n_keys, threads, ops, n_replay)
+    checked, times = heap_phase(torch, dev, seed, cap1, cap4, n_cases,
+                                timing, out)
     t0 = time.perf_counter()
     lp_chk, lp_timed, lp_steps = label_prop_phase(torch, dev, seed,
                                                   graph_vertices)
@@ -3423,6 +3504,15 @@ def build_line(out=print):
             for src, n, r, st, ld in ptxas_report(log, cufilt)))
 
 
+def heap_only(torch, seed):
+    """``--heap``: phases 2 and 3 alone, for work on the heap kernels."""
+    build_line()
+    cap1, cap4 = pq_capacities(N_KEYS, THREADS, OPS_PER_THREAD,
+                               REPLAY_BATCHES)
+    heap_phase(torch, torch.device("cuda"), seed, cap1, cap4, KERNEL_CASES,
+               True)
+
+
 def label_prop_only(torch, seed):
     """``--label-prop``: phases 2 and 6 alone, for work on ``label_prop``."""
     build_line()
@@ -3451,6 +3541,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scan", action="store_true",
                     help="only the build and the linear_scan kernel checks "
                          "and timings (phases 2 and 15)")
+    ap.add_argument("--heap", action="store_true",
+                    help="only the build and the heap kernel checks and "
+                         "timings (phases 2 and 3)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -3483,6 +3576,9 @@ def main(argv=None) -> int:
         return 0
     if args.scan:
         scan_only(torch, args.seed)
+        return 0
+    if args.heap:
+        heap_only(torch, args.seed)
         return 0
     if args.label_prop:
         label_prop_only(torch, args.seed)

@@ -3,45 +3,67 @@
 //
 // Replaces the TPU kernel src/repro/kernels/heap_sift/kernel.py,
 // sift_sharded_vmem (body _sift_kernel).  c cursors, one per extracted
-// node, sift down in a level-synchronous wavefront: at step t the cursors
-// with t >= delay_i = d_max - depth(start_i) advance one level, deepest
-// start first.  Two active cursors then stay >= 2 levels apart, so one
-// step's reads (v, 2v, 2v+1) and writes (v, w) never touch another
-// cursor's nodes, and the result equals the paper's sequential order SE.
-// Tie rule of batched_pq._sift_wavefront: w = l if a[l] <= a[r] else r,
-// swap only if a[w] < a[v].
+// node, sift down staggered by start depth: cursor i starts moving at step
+// delay_i = d_max - depth(start_i), deepest start first.  Tie rule of
+// batched_pq._sift_wavefront: w = l if a[l] <= a[r] else r, swap only if
+// a[w] < a[v], children past `size` read as +inf.  The result equals the
+// paper's sequential order SE.
 //
-// The TPU kernel starts by copying the whole shard (out_ref[...] = a_ref)
-// on every launch; this one updates a in place and touches only the nodes
-// on the cursors' paths.
+// k levels per round trip.  At each step a moving cursor loads, as one
+// batch of independent loads, its value (first step only: afterwards it
+// carries it) and the k levels below its node -- level j of that subtree
+// is the contiguous run pos*2^j .. pos*2^j + 2^j - 1 -- and then decides up
+// to k levels on chip, writing at most k + 1 nodes (each node it leaves
+// takes the smaller child's value, the last takes the carried value).  A
+// cursor that stops inside a step is done.
+// Why the stagger of one step per start depth still gives SE: while cursor
+// i (deeper start) is still moving it is exactly
+// (depth_i - depth_j) * (k + 1) >= k + 1 levels below a shallower cursor j,
+// so within one step the levels j touches (its node and the k below) and
+// the levels i touches are disjoint; i never returns to a level above it,
+// so everything j reads there is final, as if i had run to its end first.
+// One barrier per step orders the steps.  Cursors starting at one depth
+// have disjoint subtrees.
 //
-// What bounds it on an H100: latency.  Each cursor moves ~log2(cap) levels
-// (20 at a million slots), every level a dependent global load, so the
-// floor is about (d_max + depth range) load latencies, not bytes (a few
-// KiB per pass) or operations.
-// What the design does about it: one CTA per shard (grid = K), one thread
-// per cursor, two barriers per level (all reads, then the predicated swap
-// writes), and the loop ends as soon as no cursor is active
-// (__syncthreads_or).
+// What bounds it on an H100: latency.  A cursor moves ~log2(cap) levels
+// (20 at a million slots), and each level used to be a dependent global
+// load and two barriers, so a launch took ~(d_max + depth range) round
+// trips to memory.  Now it takes ~(levels / k + depth range): ~5 + stagger
+// instead of ~20 + stagger at k = 4.  Bytes (a few KiB per pass) and
+// operations are far below that.  What is left: the stagger (one step per
+// start depth, which SE needs for nested starts) and a step's time, which
+// grows with k (its 2^(k+1) - 2 scattered loads a cursor).
+// The design: one CTA per shard (grid = K), one thread per cursor (c up to
+// 1024, so at most 64 registers a thread), the subtree's values in
+// registers (flat loops of constant length keep every index into them
+// static; the path picks among them by selects), one __syncthreads_or per
+// step, which also ends the loop when no cursor is active.  Shard rows
+// start at k*cap floats for any cap, so the loads are scalar: no alignment
+// is assumed.  Chosen on the card (PERF.md): k = 4; k = 5 spills at 64
+// registers; a warp per cursor (a lane per subtree node) and an L2
+// prefetch of the next step's levels were both slower.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
+constexpr int kSiftLevels = 4;                  // levels a round trip
+constexpr int kSub = (2 << kSiftLevels) - 2;    // nodes below, k levels deep
+
 __device__ __forceinline__ int depth_of(int v) {
   return 31 - __clz(max(v, 1));
 }
 
-__global__ void heap_sift_kernel(float* __restrict__ a,
-                                 const int* __restrict__ size,
-                                 const int* __restrict__ starts,
-                                 const unsigned char* __restrict__ active,
-                                 int cap, int c) {
+__global__ void __launch_bounds__(1024)
+    heap_sift_kernel(float* __restrict__ a, const int* __restrict__ size,
+                     const int* __restrict__ starts,
+                     const unsigned char* __restrict__ active, int cap,
+                     int c) {
   __shared__ int s_dmax;
   const int k = blockIdx.x;
   const int t = threadIdx.x;
   float* ak = a + static_cast<size_t>(k) * cap;
-  const int sz = size[k];
+  const int sz = min(size[k], cap - 1);
 
   int pos = 0;
   bool act = false;
@@ -56,28 +78,53 @@ __global__ void heap_sift_kernel(float* __restrict__ a,
   __syncthreads();
   const int delay = s_dmax - dep;
 
+  float av = CUDART_INF_F;  // the value the cursor carries, once loaded
+  bool fresh = true;
   for (int step = 0; __syncthreads_or(act); ++step) {
-    const bool moving = act && step >= delay;
-    float av = CUDART_INF_F, lv = CUDART_INF_F, rv = CUDART_INF_F;
-    const int l = 2 * pos, r = 2 * pos + 1;
-    if (moving) {
-      av = ak[pos];
-      if (l <= sz && l < cap) lv = ak[l];
-      if (r <= sz && r < cap) rv = ak[r];
+    if (!act || step < delay) continue;
+    // one round trip: the subtree, entry e at level j = log2(e + 2) (the
+    // run pos*2^j .. pos*2^j + 2^j - 1), and the node's value (first step)
+    float sub[kSub];
+#pragma unroll
+    for (int e = 0; e < kSub; ++e) {
+      const int j = 31 - __clz(e + 2);
+      const long long v = (static_cast<long long>(pos) << j) + e + 2 -
+                          (1 << j);
+      sub[e] = v <= sz ? ak[v] : CUDART_INF_F;
     }
-    __syncthreads();  // every read of this level before any write
-    if (moving) {
-      const bool go_left = lv <= rv;
-      const float wv = go_left ? lv : rv;
-      const int w = go_left ? l : r;
-      if (wv < av) {
-        ak[pos] = wv;
-        ak[w] = av;
-        pos = w;
-      } else {
-        act = false;
+    if (fresh) av = ak[pos];
+    fresh = false;
+
+    // up to kSiftLevels levels on chip; u: the path's node within level j
+    long long p = pos;
+    int u = 0;
+    bool go = true;
+#pragma unroll
+    for (int j = 1; j <= kSiftLevels; ++j) {
+      float lv = CUDART_INF_F, rv = CUDART_INF_F;
+#pragma unroll
+      for (int e = 0; e < kSub; e += 2) {
+        if (e + 2 >= (1 << j) && e + 2 < (2 << j) &&
+            e + 2 - (1 << j) == 2 * u) {
+          lv = sub[e];
+          rv = sub[e + 1];
+        }
+      }
+      if (go) {
+        const bool go_left = lv <= rv;
+        const float wv = go_left ? lv : rv;
+        if (wv < av) {
+          ak[p] = wv;
+          p = 2 * p + (go_left ? 0 : 1);
+          u = 2 * u + (go_left ? 0 : 1);
+        } else {
+          go = false;
+        }
       }
     }
+    if (p != pos) ak[p] = av;
+    pos = static_cast<int>(p);
+    act = go;
   }
 }
 

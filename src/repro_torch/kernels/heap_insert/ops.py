@@ -1,6 +1,8 @@
 """Phase 4, the collective insert: the hand-written CUDA kernel
-(``csrc/heap_insert.cu``, which runs the whole level-chunk loop in one
-launch) and its plain PyTorch versions.
+(``csrc/heap_insert.cu``: the whole level-chunk loop in one launch, one
+warp per shard; each chunk loads all its ancestors as one batch and
+descends on chip, its InsertSets held as consecutive segments of one
+m-value array across the warp's lanes) and its plain PyTorch versions.
 
 The wrappers pick their path from the heap's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs :func:`phase4_plain`.
@@ -16,7 +18,7 @@ import torch
 from .. import _build
 from .._common import INF, depth, gather_masked, put, take
 
-MAX_C = 64          # the (C, C) InsertSet is double-buffered in shared memory
+MAX_C = 64          # one warp holds a chunk: two values a lane above 32
 
 
 def chunk_len(size: torch.Tensor, left: torch.Tensor) -> torch.Tensor:
@@ -138,8 +140,10 @@ def phase4_plain(a: torch.Tensor, size: torch.Tensor, rem: torch.Tensor,
 def phase4_sharded(a: torch.Tensor, size: torch.Tensor, rem: torch.Tensor,
                    m_left: torch.Tensor) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-    """All-shards phase 4, one CTA per shard on the card and one launch
-    for the whole level-chunk loop.
+    """All-shards phase 4, one warp per shard on the card and one launch
+    for the whole level-chunk loop: per chunk one batch of loads (every
+    ancestor the descent reads), the descent in registers, the changed
+    nodes stored before the next chunk's loads.
 
     a: (K, cap) f32 heap stack, updated in place; size: (K,) int32;
     rem: (K, C) f32 sorted ascending, +inf padded; m_left: (K,) int32.

@@ -1,5 +1,7 @@
 """Phase 3, the sift-down wavefront: the hand-written CUDA kernel
-(``csrc/heap_sift.cu``) and its plain PyTorch version.
+(``csrc/heap_sift.cu``: each moving cursor loads the k levels below it in
+one round trip and decides them on chip, same stagger, same SE result)
+and its plain PyTorch version.
 
 The wrappers pick their path from the heap's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs
@@ -13,7 +15,8 @@ import torch
 from .. import _build
 from .._common import depth, gather_masked, put, take
 
-MAX_C = 1024        # one thread per cursor, one CTA per shard
+MAX_C = 1024        # one thread per cursor (its k-level subtree in
+                    # registers), one CTA per shard
 
 
 def sift_wavefront_plain(a: torch.Tensor, size: torch.Tensor,

@@ -72,7 +72,7 @@ def case_inputs(seed, c_max):
     a level boundary (inserts crossing it) and a large heap."""
     rng = np.random.default_rng(seed)
     kind = seed % 4
-    size = {0: 0, 1: int(rng.integers(1, c_max)),
+    size = {0: 0, 1: int(rng.integers(1, max(c_max, 2))),
             2: (1 << int(rng.integers(3, 7))) - 1 - int(rng.integers(0, 3)),
             3: int(rng.integers(CAP // 2, CAP - 1 - c_max))}[kind]
     a = random_heap(rng, CAP, size, dup=seed % 2 == 1)
@@ -204,9 +204,12 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c_max", [1, 2, 4, 8, 16, 31, 32, 33, 64])
 @pytest.mark.parametrize("seed", range(8))
-def test_cuda_kernels_equal_plain_versions(cuda, seed):
-    c_max = 8
+def test_cuda_kernels_equal_plain_versions(cuda, seed, c_max):
+    """Every width the kernels take up to ``heap_kmin``'s 64: ``heap_insert``
+    with one and two values a lane, ``heap_sift`` with one and two warps of
+    cursors; empty and tiny heaps take several insert chunks."""
     a, size, ne, vals, ni = case_inputs(seed, c_max)
     at = _t(a).to(cuda)[None]
     st = _t([size], torch.int32).to(cuda)
