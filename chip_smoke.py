@@ -17,7 +17,9 @@ each printing a line:
    boundary, duplicate keys — and, past ``C_MAX``, ``heap_insert`` at
    widths 1, 32, 33 and 64 (near-empty heaps whose batch takes several
    level-chunks among them) and ``heap_sift`` with 33, 64 and 1,024
-   cursors on real frontiers (:func:`wide_cases`), each result held
+   cursors on real frontiers (:func:`wide_cases`), ``heap_kmin`` at
+   c_max 33 and 64, on a heap whose smallest keys run down one path and on
+   one topped with -0.0 and +0.0 (:func:`kmin_cases`), each result held
    element-wise (exactly: keys are only compared and moved) against the
    kernel's plain PyTorch version on the same inputs; then per-launch
    times from CUDA events around 30 back-to-back launches (median of 5
@@ -64,14 +66,17 @@ each printing a line:
    labels against the oracle of every union, and a replay through the
    kernel pass and the plain pass against ``SequentialUnionFind``.
 9. ``sorted_merge`` kernel checks — seeded merge-compact inputs at the
-   map's per-shard capacity (254,627 slots, K = 4 and K = 1) and at
-   N = 1000 and 3072: keep all / none / ≤ 16 deletions / random half,
-   b_count 0, 1 and 16, junk (unsorted, ±inf, NaN) in dropped slots and
-   dead lanes, empty A, merged length exactly N, a raw -0.0 and flushed
-   subnormal keys; each launch bit-equal to the plain version, the small
-   ones to the numpy oracle too; then per-launch times on a full map pass
-   at the map phase's fill (250,000 keys a shard, 16 deletions and 16 new
-   keys).
+   map's per-shard capacity (253,120 slots, K = 4 and K = 1), at N = 1000
+   and one either side of the kernel's tile (2,047 and 2,049): keep all /
+   none / ≤ 16 deletions / random half, b_count 0, 1 and 16, junk
+   (unsorted, ±inf, NaN) in dropped slots and dead lanes, empty A, merged
+   length exactly N, a raw -0.0 and flushed subnormal keys, the B run
+   below or above all of A, and past 2,048 slots B runs of 1,024 lanes;
+   each launch bit-equal to the plain version, the small ones to the
+   numpy oracle too; then per-launch times on a full map pass at the map
+   phase's fill (250,000 keys a shard, 16 deletions and 16 new keys) and,
+   at the same shape, keep-none and empty A.  ``python3 chip_smoke.py
+   --merge`` runs phases 2 and 9 alone.
 10. ``map`` — ``pc_sharded_map`` (K = 4 key-range shards over [0, 1000),
    c_max = 16) over 1,000,000 keys drawn as bench_map's ``_items``, 8
    threads of bench_map's mix at 90% reads; sorted_merge launches, size
@@ -354,7 +359,60 @@ def pick_sizes(rng, K, cap, c_max):
 
 INSERT_WIDTHS = (1, 32, 33, 64)   # heap_insert: one and two values a lane
 SIFT_WIDTHS = (33, 64, 1024)      # heap_sift: two warps to heap_sift.MAX_C
+KMIN_WIDTHS = (33, 64)            # heap_kmin: past C_MAX to heap_kmin.MAX_C
 NEAR_EMPTY = (0, 1, 2, 3, 6, 7)   # sizes whose batches take several chunks
+
+
+def deep_path_heap(torch, K, cap, sizes, rng, dev):
+    """A heap per shard whose smallest keys run down one random root-to-leaf
+    path (0, 1, 2, ... by depth) and every other node sits above 1e6,
+    rising by level: the frontier search's worst case for cache misses."""
+    v = np.arange(cap)
+    depth = np.floor(np.log2(np.maximum(v, 1))).astype(np.int64)
+    a = np.empty((K, cap), np.float32)
+    for k in range(K):
+        a[k] = 1e6 + depth * 1e3 + np.floor(rng.random(cap) * 999)
+        node = 1
+        while node <= min(sizes[k], cap - 1):
+            a[k, node] = depth[node]
+            node = 2 * node + int(rng.integers(2))
+    a[v[None, :] > np.array(sizes)[:, None]] = np.inf
+    a[:, 0] = np.inf
+    return (torch.from_numpy(a).to(dev),
+            torch.tensor(sizes, dtype=torch.int32, device=dev))
+
+
+def kmin_cases(torch, dev, rng, gen, cap, checked, K=4):
+    """``heap_kmin`` past the pass's widths, each launch held to the plain
+    version by ``checked``: c_max 33 and 64 (ne = c_max and ne = c_max / 2)
+    on random heaps with duplicates, the deep-path heap (the smallest keys
+    down one path) at C_MAX and 64, and a heap whose top three levels are
+    -0.0 and +0.0 in turn (ties across frontier slots).  Returns the
+    widths of the launches made."""
+    done = []
+    for c in KMIN_WIDTHS:
+        a, size = random_heap_stack(torch, K, cap,
+                                    pick_sizes(rng, K, cap, c), gen,
+                                    dup=True, dev=dev)
+        for ne in (c, c // 2):
+            checked.kmin(a, size, ne, c_max=c)
+            done.append(c)
+    sizes = [cap - 1 - int(rng.integers(0, 1000)) for _ in range(K)]
+    sizes[0] = 100                       # the path ends inside the heap
+    a, size = deep_path_heap(torch, K, cap, sizes, rng, dev)
+    for c in (C_MAX, 64):
+        checked.kmin(a, size, c, c_max=c)
+        done.append(c)
+    a, size = random_heap_stack(torch, K, cap, pick_sizes(rng, K, cap, 64),
+                                gen, dup=True, dev=dev)
+    signs = torch.tensor([-0.0, 0.0, -0.0, 0.0, 0.0, -0.0, 0.0],
+                         device=dev)
+    top = torch.arange(1, 8, device=dev)
+    a[:, 1:8] = torch.where(top[None, :] <= size[:, None], signs, a[:, 1:8])
+    for c in (C_MAX, 64):
+        checked.kmin(a, size, c, c_max=c)
+        done.append(c)
+    return done
 
 
 def wide_cases(torch, dev, rng, gen, cap, checked, K=4):
@@ -446,6 +504,8 @@ def kernel_phase(torch, dev, seed, caps, n_cases):
                                          n_shards=K, phases=phases)
     K, cap = caps[-1]
     checked.wide = wide_cases(torch, dev, rng, gen, cap, checked, K)
+    checked.wide["heap_kmin"] = kmin_cases(torch, dev, rng, gen, cap,
+                                           checked, K)
     # dedicated batches at the K = 4 shape for timing: extract-only keeps
     # heap_kmin and heap_sift inputs, insert-only the heap_insert inputs
     sizes = [cap - 1 - C_MAX - int(rng.integers(0, 1000)) for _ in range(K)]
@@ -1383,7 +1443,7 @@ class MergeCheck:
 
 
 def merge_inputs(torch, dev, rng, K, n, c, mode, bc, *, junk=True,
-                 zeros=False, full=False, fill=None):
+                 zeros=False, full=False, fill=None, b_at=None):
     """One seeded merge-compact input on the card, shaped as a map pass
     makes it: per shard a sorted body of ``s`` distinct keys (+inf past
     it; ``s`` drawn from [n/2 - bc, n - bc], or ``fill``), ``keep`` by
@@ -1392,7 +1452,8 @@ def merge_inputs(torch, dev, rng, K, n, c, mode, bc, *, junk=True,
     keys in ``c`` lanes.  ``junk`` writes unsorted values, ±inf and NaN
     into dropped slots and dead lanes; ``zeros`` puts a raw -0.0 key into
     even shards and a flushed subnormal into odd ones; ``full`` makes the
-    merged length exactly ``n``."""
+    merged length exactly ``n``; ``b_at`` ``"before"`` / ``"after"`` gives
+    the run the smallest / largest keys, below or above all of A."""
     ak = np.full((K, n), np.inf, np.float32)
     av = np.full((K, n), np.inf, np.float32)
     keep = np.zeros((K, n), bool)
@@ -1408,6 +1469,10 @@ def merge_inputs(torch, dev, rng, K, n, c, mode, bc, *, junk=True,
         if zeros and s + b and not (pool == 0).any():
             pool[int(rng.integers(s + b))] = 0
         keys = pool.astype(np.float32)
+        if b_at is not None:
+            keys = np.sort(keys)
+            if b_at == "before":
+                keys = np.roll(keys, -b)
         if zeros:
             keys[keys == 0] = np.float32(-0.0) if k % 2 == 0 else \
                 np.float32(1e-40)
@@ -1440,22 +1505,44 @@ def merge_inputs(torch, dev, rng, K, n, c, mode, bc, *, junk=True,
                  (ak, av, keep, bk, bv, bcount))
 
 
+MERGE_WIDE = 1024                  # sorted_merge's widest B run
+
+
+def merge_sizes(n_map):
+    """The N of the merge checks: the map's per-shard capacity, 1000, and
+    one either side of the kernel's tile (read off the built kernel; the
+    host rehearsal, which builds none, takes the source's 2,048)."""
+    import torch
+
+    tile = 2048
+    if torch.cuda.is_available():
+        from repro_torch.kernels.sorted_merge import ops
+        tile = ops._kernel_limits()[0]
+    return (n_map, 1000, tile - 1, tile + 1)
+
+
 def sorted_merge_phase(torch, dev, seed, n_map, fill):
     """The merge at the map's per-shard capacity (K = 4 and K = 1), at
-    one N that is not a multiple of the kernel's tile and one that is:
-    every keep mode at b_count 0, 1 and 16, junk in the dropped slots,
-    empty A, merged length exactly N, signed and flushed zeros; small
-    cases also against the numpy oracle.  Returns the check record and
-    the (checked) input kept for timing: a full map pass at the map
-    phase's fill, K = 4 shards of ``fill`` keys each with 16 deletions
-    and 16 new keys."""
+    N = 1000 and one either side of the kernel's tile: every keep mode at
+    b_count 0, 1 and 16, junk in the dropped slots, empty A, merged length
+    exactly N, signed and flushed zeros, the B run below or above all of
+    A; past 2,048 slots also B runs of 1,024 lanes (full, half full, below
+    A); small cases also against the numpy oracle.  Returns
+    the check record and the (checked) inputs kept for timing: a full map
+    pass at the map phase's fill, K = 4 shards of ``fill`` keys each with
+    16 deletions and 16 new keys, and at the same shape keep-none and
+    empty A (where the pad CTAs write whole rows)."""
     chk = MergeCheck()
     rng = np.random.default_rng([seed, 14])
-    timed = merge_inputs(torch, dev, rng, 4, n_map, C_MAX, "few", C_MAX,
-                         junk=False, fill=fill)
-    chk("K=4 map fill", timed)
+    timed = {"fill": merge_inputs(torch, dev, rng, 4, n_map, C_MAX, "few",
+                                  C_MAX, junk=False, fill=fill)}
+    chk("K=4 map fill", timed["fill"])
+    for name in ("none", "empty"):
+        timed[name] = merge_inputs(torch, dev, rng, 4, n_map, C_MAX, name,
+                                   C_MAX, junk=False, fill=fill)
+        chk(f"K=4 map {name}", timed[name])
     for K in (4, 1):
-        for n in (n_map, 1000, 3 * 1024):
+        for n in merge_sizes(n_map):
             ref = n <= 4096
             for i, (mode, bc) in enumerate(
                     (m, b) for m in ("all", "none", "few", "half")
@@ -1463,40 +1550,57 @@ def sorted_merge_phase(torch, dev, seed, n_map, fill):
                 inp = merge_inputs(torch, dev, rng, K, n, C_MAX, mode, bc,
                                    junk=i % 2 == 0)
                 chk(f"K={K} N={n} {mode} b_count={bc}", inp, ref=ref)
-            for name, kw in (("empty A", dict(mode="empty", bc=C_MAX)),
-                             ("merged == N", dict(mode="few", bc=C_MAX,
-                                                  full=True)),
-                             ("zeros", dict(mode="few", bc=C_MAX,
-                                            zeros=True))):
+            cases = [("empty A", C_MAX, dict(mode="empty", bc=C_MAX)),
+                     ("merged == N", C_MAX, dict(mode="few", bc=C_MAX,
+                                                 full=True)),
+                     ("zeros", C_MAX, dict(mode="few", bc=C_MAX,
+                                           zeros=True)),
+                     ("B before A", C_MAX, dict(mode="few", bc=C_MAX,
+                                                b_at="before")),
+                     ("B after A", C_MAX, dict(mode="half", bc=C_MAX,
+                                               b_at="after"))]
+            if n > 2 * MERGE_WIDE:
+                cases += [(f"C={MERGE_WIDE} b_count={bc}", MERGE_WIDE,
+                           dict(mode=mode, bc=bc, b_at=at))
+                          for mode, bc, at in (
+                              ("few", MERGE_WIDE, None),
+                              ("half", MERGE_WIDE // 2, None),
+                              ("all", MERGE_WIDE, "before"))]
+            for name, c, kw in cases:
                 chk(f"K={K} N={n} {name}",
-                    merge_inputs(torch, dev, rng, K, n, C_MAX, **kw),
-                    ref=ref)
+                    merge_inputs(torch, dev, rng, K, n, c, **kw), ref=ref)
     return chk, timed
 
 
-def time_sorted_merge(torch, inputs):
+def time_sorted_merge(torch, timed):
     """Per-launch times (``_per_launch_ms``) of the kernel and its plain
     version on the kept map-fill input, each call into its own output
-    pair.  The bound counts the bytes the function needs once each (the
-    one-byte keep of every A slot, key and value of the kept slots only,
-    the B run and b_count; both outputs) over 3.35 TB/s, against a keep
-    test per slot and a binary search of the B run per kept slot over
-    67 TOP/s."""
+    pair, and the kernel's at keep-none and empty A.  The bound counts the
+    bytes the function needs once each (the one-byte keep of every A
+    slot, key and value of the kept slots only, the B run and b_count;
+    both outputs) over 3.35 TB/s, against a keep test per slot and a
+    binary search of the B run per kept slot over 67 TOP/s."""
     from repro_torch.kernels.sorted_merge import (merge_compact_plain,
                                                   merge_compact_sharded)
 
-    ak, av, keep, bk, bv, bc = inputs
+    ak, av, keep, bk, bv, bc = inputs = timed["fill"]
     K, n = ak.shape
     c = bk.shape[1]
     zero = torch.zeros((2, K, n), dtype=torch.float32, device=ak.device)
     ring = [torch.empty_like(zero) for _ in range(RING)]
+
+    def kernel(inp):
+        return lambda r: merge_compact_sharded(*inp, out=(r[0], r[1]))
+
     out = {
-        "ms": _per_launch_ms(torch, lambda r: merge_compact_sharded(
-            ak, av, keep, bk, bv, bc, out=(r[0], r[1])), ring, zero,
-            hold=True),
+        "ms": _per_launch_ms(torch, kernel(inputs), ring, zero, hold=True),
         "plain_ms": _per_launch_ms(torch, lambda r: merge_compact_plain(
             ak, av, keep, bk, bv, bc, out=(r[0], r[1])), ring[:PLAIN_RING],
             zero, hold=False),
+        "none_ms": _per_launch_ms(torch, kernel(timed["none"]), ring, zero,
+                                  hold=True),
+        "empty_ms": _per_launch_ms(torch, kernel(timed["empty"]), ring,
+                                   zero, hold=True),
         "library_ms": None, "K": K, "n": n, "c": c,
         "kept": int(keep.sum()), "b_count": int(bc.sum()),
     }
@@ -1508,6 +1612,22 @@ def time_sorted_merge(torch, inputs):
     out["bound_ms"] = max(byte_ms, op_ms)
     out["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     return out
+
+
+def merge_line(chk, t, seconds, sizes):
+    """The ``kernels: sorted_merge`` line of phase 9 (and ``--merge``)."""
+    return (f"kernels: sorted_merge == plain on {chk.calls} launches "
+            f"(max_abs_err {chk.max_abs_err}; N = "
+            f"{', '.join(map(str, sizes))}, K = 4 and 1, C = {C_MAX} and "
+            f"{MERGE_WIDE}; {seconds:.1f} s); " + (
+                "timing not measured" if not t else
+                f"ms {t['ms']:.6f} (K {t['K']}, N {t['n']}, C {t['c']}, "
+                f"kept {t['kept']}, b_count {t['b_count']}; keep-none "
+                f"{t['none_ms']:.6f}, empty A {t['empty_ms']:.6f}) "
+                f"plain_ms {t['plain_ms']:.6f} bound_ms "
+                f"{t['bound_ms']:.3e} ({t['bound_by']}) library_ms None "
+                f"(no single PyTorch call merges a masked sorted run with "
+                f"a sorted insert run)"))
 
 
 # ---------------------------------------------------------------------------
@@ -3022,10 +3142,10 @@ def _profile(torch, name, one, n_passes, what, out):
     launches = sum(e.count for e in ka if e.key in LAUNCH_CALLS)
     memcpy = sum(e.count for e in ka if e.key.startswith("cudaMemcpy"))
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    ours_rx = r"\b(%s)(_\w+)?_kernel(<[^>]*>)?\(" % "|".join(REPLACES)
     ours = [f"{m.group(0)[:-1]} {e.self_device_time_total / e.count:.3f} "
             f"us/launch x {e.count}" for e in rows if e.count
-            for m in [re.search(r"\b(%s)(_\w+)?_kernel\(" % "|".join(
-                REPLACES), e.key)] if m]
+            for m in [re.search(ours_rx, e.key)] if m]
     out(f"profile {name}: single-thread pass {host_ms:.3f} ms (host "
         f"clock, {n_passes} passes of {what}); under the profiler "
         f"{prof_wall * 10:.3f} ms/pass wall, device "
@@ -3213,15 +3333,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     checked.max_abs_err["sorted_merge"] = sm_chk.max_abs_err
     if timing:
         times["sorted_merge"] = time_sorted_merge(torch, sm_timed)
-    t = times.get("sorted_merge", {})
-    out(f"kernels: sorted_merge == plain on {sm_chk.calls} launches "
-        f"(max_abs_err {sm_chk.max_abs_err}; N = {map_cap}, 1000 and 3072, "
-        f"K = 4 and 1; {time.perf_counter() - t0:.1f} s); " + (
-            "timing not measured" if not t else
-            f"ms {t['ms']:.6f} (K {t['K']}, N {t['n']}, C {t['c']}, kept "
-            f"{t['kept']}, b_count {t['b_count']}) plain_ms "
-            f"{t['plain_ms']:.6f} bound_ms {t['bound_ms']:.3e} "
-            f"({t['bound_by']}) library_ms None"))
+    out(merge_line(sm_chk, times.get("sorted_merge", {}),
+                   time.perf_counter() - t0, merge_sizes(map_cap)))
 
     rng = np.random.default_rng([seed, 0])
     init = rng.uniform(0, KEY_RANGE, n_keys).astype(np.float32)
@@ -3470,6 +3583,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "merge_plain_ms",
                 "merge_gated_off_ms", "merge_bound_ms", "uf_merge_ms",
                 "uf_bound_ms", "fixpoint_steps")})
+        if name == "sorted_merge":
+            rec.update({k: t.get(k) for k in ("none_ms", "empty_ms")})
         if name == "flash_attention":
             rec.update({k: t.get(k) for k in (
                 "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
@@ -3513,6 +3628,17 @@ def heap_only(torch, seed):
                True)
 
 
+def merge_only(torch, seed):
+    """``--merge``: phases 2 and 9 alone, for work on ``sorted_merge``."""
+    build_line()
+    t0 = time.perf_counter()
+    map_cap = shard_capacity(MAP_KEYS + THREADS * MAP_OPS + 2, 4)
+    chk, timed = sorted_merge_phase(torch, torch.device("cuda"), seed,
+                                    map_cap, MAP_KEYS // 4)
+    print(merge_line(chk, time_sorted_merge(torch, timed),
+                     time.perf_counter() - t0, merge_sizes(map_cap)))
+
+
 def label_prop_only(torch, seed):
     """``--label-prop``: phases 2 and 6 alone, for work on ``label_prop``."""
     build_line()
@@ -3544,6 +3670,9 @@ def main(argv=None) -> int:
     ap.add_argument("--heap", action="store_true",
                     help="only the build and the heap kernel checks and "
                          "timings (phases 2 and 3)")
+    ap.add_argument("--merge", action="store_true",
+                    help="only the build and the sorted_merge kernel checks "
+                         "and timings (phases 2 and 9)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -3576,6 +3705,9 @@ def main(argv=None) -> int:
         return 0
     if args.scan:
         scan_only(torch, args.seed)
+        return 0
+    if args.merge:
+        merge_only(torch, args.seed)
         return 0
     if args.heap:
         heap_only(torch, args.seed)

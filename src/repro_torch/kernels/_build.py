@@ -73,9 +73,11 @@ SIGNATURES = {
     "label_prop_scratch_words": [_I, _I],
     # K, N, C, a_keys, its row stride, a_vals, stride, keep, stride,
     # b_keys, stride, b_vals, stride, b_count, out keys, stride, out vals,
-    # stride, scratch, stream
+    # stride, scratch, epoch, stream
     "sorted_merge_launch": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P,
-                            _L, _P, _P, _L, _P, _L, _P, _P],
+                            _L, _P, _P, _L, _P, _L, _P, _L, _P],
+    # K, N -> 64-bit words of scratch
+    "sorted_merge_scratch_words": [_I, _I],
     "sorted_merge_tile": [],
     "sorted_merge_max_lanes": [],
     # q, k, v, o, B, H, K, Sq, Skv, hd, hd_v, the (batch, seq, head)

@@ -1,5 +1,8 @@
 """Phase 1, the frontier search: the hand-written CUDA kernel
-(``csrc/heap_kmin.cu``) and its plain PyTorch version.
+(``csrc/heap_kmin.cu``: one warp a shard, the children of the taken nodes
+read from an on-chip cache of the heap's top levels and of the subtrees
+loaded on misses, so a launch makes 1 + misses round trips to memory) and
+its plain PyTorch version.
 
 The wrappers pick their path from the heap's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs :func:`k_smallest_plain`.
@@ -14,7 +17,8 @@ import torch
 from .. import _build
 from .._common import INF, gather_masked
 
-MAX_C = 64          # the kernel keeps the 2*c_max+1 frontier in shared memory
+MAX_C = 64          # the kernel keeps the 2*c_max+1 frontier in registers
+                    # (at most five slots a lane) and one cached block a step
 
 
 def k_smallest_plain(a: torch.Tensor, size: torch.Tensor, n_extract: int,
@@ -62,7 +66,7 @@ def k_smallest_plain(a: torch.Tensor, size: torch.Tensor, n_extract: int,
 
 def k_smallest_sharded(a: torch.Tensor, size: torch.Tensor, n_extract: int,
                        *, c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-shard frontier search, one CTA per shard on the card.
+    """Per-shard frontier search, one warp per shard on the card.
 
     a: (K, cap) f32 heap stack; size: (K,) int32; n_extract: host int
     (the combined batch's global extract count).  Returns (ids (K, c_max)

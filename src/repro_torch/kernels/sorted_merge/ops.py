@@ -15,15 +15,20 @@ plain version and the numpy oracle (``ref.py``) agree bit for bit.
 
 :func:`merge_compact_sharded` is the one entry point; it picks its path
 from ``a_keys``' device: a CUDA tensor launches the kernel (all K shards
-in one launch) or raises, a CPU tensor runs :func:`merge_compact_plain`.
+in one ordinary launch: a single-pass scan with decoupled look-back, no
+grid barrier) or raises, a CPU tensor runs :func:`merge_compact_plain`.
 ``merge_compact_sharded.launches`` counts kernel launches.  The output is
 another buffer than A (the kernel reads A while it writes): ``out=`` takes
 two (K, N) tensors whose rows may be strided, e.g. the bodies of a fresh
 ``(K, N + 1)`` state row block, so the pass writes its next state in
-place.  :func:`merge_compact` is the K = 1 call.
+place.  The kernel's look-back status words live in one scratch a CUDA
+stream, zeroed once when it is made (or outgrown) and numbered by a
+per-call epoch, so a call launches nothing besides the kernel.
+:func:`merge_compact` is the K = 1 call.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -102,6 +107,25 @@ def _kernel_limits() -> Tuple[int, int]:
     return _limits["tile"], _limits["lanes"]
 
 
+EPOCHS = 1 << 21        # the status word's epoch field (csrc/sorted_merge.cu)
+_scratch = {}           # (device index, stream) -> [int64 scratch, epoch]
+_scratch_lock = threading.Lock()
+
+
+def _status_scratch(dev: torch.device, stream: int, words: int):
+    """The look-back scratch of ``stream`` (zeroed when it is made: at the
+    first call, when a call outgrows it, and when the epochs run out) and
+    this call's epoch.  Calls on one stream run in its order, so a status
+    word of an earlier call never carries the epoch of a later one."""
+    key = (dev.index, stream)
+    s = _scratch.get(key)
+    if s is None or s[0].numel() < words or s[1] + 1 >= EPOCHS:
+        s = [torch.zeros(words, dtype=torch.int64, device=dev), 0]
+        _scratch[key] = s
+    s[1] += 1
+    return s
+
+
 def merge_compact_sharded(a_keys: torch.Tensor, a_vals: torch.Tensor,
                           a_keep: torch.Tensor, b_keys: torch.Tensor,
                           b_vals: torch.Tensor, b_count: torch.Tensor, *,
@@ -109,8 +133,10 @@ def merge_compact_sharded(a_keys: torch.Tensor, a_vals: torch.Tensor,
                           = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge-compact all K shards (arguments as
     :func:`merge_compact_plain`).  On CUDA tensors: one kernel launch on
-    the current stream, no host sync (``b_count`` is read on the device);
-    ``a_keep`` is bool there, and ``out`` must not overlap A."""
+    the current stream, no host sync (``b_count`` is read on the device)
+    and no other launch (the stream's look-back scratch is zeroed once,
+    when first made); ``a_keep`` is bool there, and ``out`` must not
+    overlap A."""
     if a_keys.device.type == "cpu":
         return merge_compact_plain(a_keys, a_vals, a_keep, b_keys, b_vals,
                                    b_count, out=out)
@@ -130,18 +156,22 @@ def merge_compact_sharded(a_keys: torch.Tensor, a_vals: torch.Tensor,
     sov = _rows(out[1], "out vals", torch.float32, (K, n), dev)
     if K == 0 or n == 0:
         return out
-    tile, lanes = _kernel_limits()
+    _, lanes = _kernel_limits()
     if c > lanes:
         raise ValueError(f"sorted_merge takes at most {lanes} B lanes, "
                          f"got {c}")
-    tiles = -(-n // tile)
-    scratch = torch.empty(K * tiles + K * (c + 1), dtype=torch.int32,
-                          device=dev)
-    rc = _build.library().sorted_merge_launch(
-        K, n, c, a_keys.data_ptr(), sak, a_vals.data_ptr(), sav,
-        a_keep.data_ptr(), skeep, b_keys.data_ptr(), sbk, b_vals.data_ptr(),
-        sbv, b_count.data_ptr(), out[0].data_ptr(), sok, out[1].data_ptr(),
-        sov, scratch.data_ptr(), _build.stream(dev))
+    lib = _build.library()
+    stream = _build.stream(dev)
+    with _scratch_lock:
+        scratch, epoch = _status_scratch(
+            dev, stream, lib.sorted_merge_scratch_words(K, n))
+        rc = lib.sorted_merge_launch(
+            K, n, c, a_keys.data_ptr(), sak, a_vals.data_ptr(), sav,
+            a_keep.data_ptr(), skeep, b_keys.data_ptr(), sbk,
+            b_vals.data_ptr(), sbv, b_count.data_ptr(), out[0].data_ptr(),
+            sok, out[1].data_ptr(), sov, scratch.data_ptr(), epoch, stream)
+        if rc != 0:         # a launch that did not run leaves no state
+            _scratch.pop((dev.index, stream), None)
     _build.check(rc, "sorted_merge")
     merge_compact_sharded.launches += 1
     return out

@@ -88,6 +88,31 @@ def _t(x, dtype=None):
     return torch.tensor(np.asarray(x), dtype=dtype)
 
 
+def path_heap(rng, size):
+    """The smallest keys (0, 1, 2, ... by depth) down one random path,
+    every other node above 1e6 and rising by level, +inf past ``size``."""
+    v = np.arange(CAP)
+    depth_v = np.floor(np.log2(np.maximum(v, 1)))
+    a = (1e6 + depth_v * 1e3 + rng.integers(0, 999, CAP)).astype(np.float32)
+    node = 1
+    while node <= size:
+        a[node] = depth_v[node]
+        node = 2 * node + int(rng.integers(2))
+    a[v > size] = np.inf
+    a[0] = np.inf
+    return a
+
+
+def signed_zero_heap(rng, size):
+    """A heap topped with -0.0 and +0.0 in turn, duplicates below."""
+    a = random_heap(rng, CAP, size, dup=True)
+    top = np.arange(1, 16)
+    a[top] = np.where(top > size, a[top],
+                      np.where(top % 3 == 0, np.float32(0.0),
+                               np.float32(-0.0)))
+    return a
+
+
 @pytest.mark.parametrize("c_max", [4, 8])
 @pytest.mark.parametrize("seed", CASES)
 def test_k_smallest_matches_xla_twin_and_oracle(seed, c_max):
@@ -209,7 +234,8 @@ def cuda():
 def test_cuda_kernels_equal_plain_versions(cuda, seed, c_max):
     """Every width the kernels take up to ``heap_kmin``'s 64: ``heap_insert``
     with one and two values a lane, ``heap_sift`` with one and two warps of
-    cursors; empty and tiny heaps take several insert chunks."""
+    cursors; empty and tiny heaps take several insert chunks; ``heap_kmin``
+    also on a deep-path heap and on signed zeros."""
     a, size, ne, vals, ni = case_inputs(seed, c_max)
     at = _t(a).to(cuda)[None]
     st = _t([size], torch.int32).to(cuda)
@@ -229,3 +255,16 @@ def test_cuda_kernels_equal_plain_versions(cuda, seed, c_max):
     _, ks = heap_insert.phase4_sharded(k_heap, size2, rem, m_left)
     _, ps = heap_insert.phase4_plain(p4, size2, rem, m_left)
     assert torch.equal(k_heap, p4) and torch.equal(ks, ps)
+
+    # heap_kmin's cache: the smallest keys down one path (a miss every few
+    # steps), a top of -0.0 and +0.0 tied across frontier slots, sizes that
+    # cut through the cached levels, and an extract count past the size
+    rng = np.random.default_rng(seed)
+    size = int(rng.integers(1, CAP))
+    for a in (path_heap(rng, size), signed_zero_heap(rng, size)):
+        at = _t(a).to(cuda)[None]
+        st = _t([size], torch.int32).to(cuda)
+        for ne in (c_max, size + 1):
+            ids, kv = heap_kmin.k_smallest_sharded(at, st, ne, c_max=c_max)
+            pids, pv = heap_kmin.k_smallest_plain(at, st, ne, c_max)
+            assert torch.equal(ids, pids) and torch.equal(kv, pv)

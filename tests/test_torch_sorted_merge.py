@@ -28,8 +28,10 @@ N, C = 64, 8
 MODES = ("all", "none", "few", "half", "empty", "full", "zeros")
 
 
-def case(seed, K, mode, bc, junk=True, n=N, c=C):
-    """Seeded inputs shaped as a map pass makes them (see module doc)."""
+def case(seed, K, mode, bc, junk=True, n=N, c=C, b_at=None):
+    """Seeded inputs shaped as a map pass makes them (see module doc);
+    ``b_at`` ``"before"`` / ``"after"`` gives the B run the smallest /
+    largest keys."""
     rng = np.random.default_rng(seed)
     ak = np.full((K, n), np.inf, np.float32)
     av = np.full((K, n), np.inf, np.float32)
@@ -46,6 +48,10 @@ def case(seed, K, mode, bc, junk=True, n=N, c=C):
         if mode == "zeros" and not (pool == 0).any():
             pool[0] = 0
         keys = pool.astype(np.float32)
+        if b_at is not None:
+            keys = np.sort(keys)
+            if b_at == "before":
+                keys = np.roll(keys, -b)
         if mode == "zeros":                     # raw -0.0 / flushed tiny
             keys[keys == 0] = np.float32(-0.0) if k % 2 == 0 else 0.0
         a = np.sort(keys[:s], kind="stable")
@@ -162,17 +168,59 @@ def cuda():
     return torch.device("cuda")
 
 
+def _strided(t, cuda):
+    """``t`` as the body of a (K, N + 1) block on the card: rows k >= 1
+    start unaligned, as the map's state rows do."""
+    K, n = t.shape
+    blk = torch.full((K, n + 1), -7.0, dtype=t.dtype, device=cuda)
+    blk[:, :n] = t.to(cuda)
+    return blk[:, :n]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [N, 1000, 3 * 1024, 20_000])
+@pytest.mark.parametrize("n", [N, 1000, "tile-1", "tile", "tile+1", 20_000])
 def test_cuda_kernel_equals_plain_version(cuda, n):
+    """Every mode at b_count 0, 1 and C, the B run below or above all of
+    A, on contiguous and on unaligned strided rows, N one either side of
+    the kernel's tile; two calls in a row reuse the stream's status words
+    (their epochs differ)."""
+    if isinstance(n, str):
+        tile = sorted_merge.ops._kernel_limits()[0]
+        n = tile + {"tile-1": -1, "tile": 0, "tile+1": 1}[n]
     for i, mode in enumerate(MODES):
         for bc in (0, 1, C):
-            inputs = case(300 + i * 7 + bc, 4, mode, bc, n=n)
-            t = [_t(x).to(cuda) for x in inputs]
-            t[2] = t[2].bool()
-            before = merge_compact_sharded.launches
-            got = merge_compact_sharded(*t)
-            want = merge_compact_plain(*t)
-            assert merge_compact_sharded.launches == before + 1
-            for g, w in zip(got, want):
-                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for b_at in (None, "before", "after"):
+                inputs = case(300 + i * 7 + bc, 4, mode, bc, n=n, b_at=b_at)
+                t = [_t(x).to(cuda) for x in inputs]
+                t[2] = t[2].bool()
+                before = merge_compact_sharded.launches
+                got = merge_compact_sharded(*t)
+                want = merge_compact_plain(*t)
+                assert merge_compact_sharded.launches == before + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                if b_at is None:
+                    rows = [_strided(x, cuda) for x in t[:2]]
+                    out = (_strided(torch.zeros_like(t[0]), cuda),
+                           _strided(torch.zeros_like(t[0]), cuda))
+                    merge_compact_sharded(*rows, *t[2:], out=out)
+                    for g, w in zip(out, want):
+                        assert torch.equal(g.view(torch.int32),
+                                           w.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,bc,b_at", [("few", 1024, None),
+                                          ("half", 512, None),
+                                          ("all", 1024, "before"),
+                                          ("none", 1024, None)])
+def test_cuda_kernel_equals_plain_version_at_1024_lanes(cuda, mode, bc,
+                                                        b_at):
+    inputs = case(400 + bc, 2, mode, bc, n=5000, c=1024, b_at=b_at)
+    t = [_t(x).to(cuda) for x in inputs]
+    t[2] = t[2].bool()
+    got = merge_compact_sharded(*t)
+    want = merge_compact_plain(*t)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
