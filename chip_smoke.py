@@ -145,12 +145,18 @@ each printing a line:
    1e-4); decays past the plain version's domain (|log w| = 4, w0 over
    [-6, 1.5], 5 % of w exactly 0) against the exact scan alone;
    ``rglru_scan`` bit-equal to its plain version and to the exact scan on
-   every CPU case and at RecurrentGemma's shapes ((1, 8,192, 2,560),
-   (8, 512, 2,560)); then at the main shapes each kernel's ms (the
+   every CPU case, at RecurrentGemma's shapes ((1, 8,192, 2,560),
+   (8, 512, 2,560)) and on the ring's ragged layouts (``RGLRU_RAGGED``:
+   R not a multiple of 4, views one element into their storage, S = 1,
+   S not a multiple of a stage, B x R below one CTA's channels, a short
+   last channel tile); then at the main shapes each kernel's ms (the
    CUDA-event method above), the plain version's and the bound (no single
-   PyTorch call computes either recurrence: no library yardstick), and
-   ``rwkv6_scan`` at the serving prefill and decode shapes, at B = 3 and
-   6, and its per-token body alone at the scoring and prefill shapes.
+   PyTorch call computes either recurrence: no library yardstick),
+   ``rglru_scan`` at the serving prefill shape, and ``rwkv6_scan`` at
+   the serving prefill and decode shapes, at B = 3 and 6, and its
+   per-token body alone at the scoring and prefill shapes.  The ``build``
+   line gives ``rglru_scan``'s dynamic shared memory a CTA beside
+   ptxas's registers and spills.
    ``python3 chip_smoke.py --scan`` runs phases 2 and 15 alone.
 16. ``rwkv6`` — RWKV-6 3B at full width and depth (32 layers, d_model
    2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, 2,913,405,440
@@ -2843,6 +2849,23 @@ RWKV_TAILS = (15, 17, 63, 65, 127)
 # their storage (every row misaligned)
 RWKV_UNALIGNED = (((2, 100, 3, 12), "rows"), ((2, 100, 3, 64), "offset"))
 RWKV_FILL = (3, 6)             # batches timed beside the scoring shape's
+# rglru_scan's ragged layouts (csrc/rglru_scan.cu: element copies, the last
+# channel tile and the last stage): R not a multiple of 4 (4-byte copies
+# and stores), views one element into their storage (every row
+# misaligned), S = 1, S not a multiple of a stage's steps, B x R below one
+# CTA's channels, and a last channel tile cut short on 16-byte copies
+RGLRU_RAGGED = (((1, 100, 50), None), ((2, 77, RG_D_RNN), "offset"),
+                ((2, 1, RG_D_RNN), None), ((1, 200, RG_D_RNN), None),
+                ((1, 50, 12), None), ((2, 100, 40), None))
+
+
+def _offset_view(torch, x):
+    """A copy of ``x`` as a view one element into its storage (so no row
+    starts on 16 bytes)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def _rwkv_inputs(torch, gen, dev, B, S, H, hd, dtype, decay=None):
@@ -2854,13 +2877,8 @@ def _rwkv_inputs(torch, gen, dev, B, S, H, hd, dtype, decay=None):
     reference draw itself (named apart for the case list)."""
     shape = (B, S, H, hd)
     if decay == "offset":        # views one element into their storage
-        def view(x):
-            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
-            out = flat[1:].view(shape)
-            out.copy_(x)
-            return out
         r, k, v, w, u, s0 = _rwkv_inputs(torch, gen, dev, B, S, H, hd, dtype)
-        return view(r), view(k), view(v), view(w), u, s0
+        return (*(_offset_view(torch, x) for x in (r, k, v, w)), u, s0)
     r, k, v = (torch.randn(shape, generator=gen, device=dev)
                .to(dtype) for _ in range(3))
     if decay is None or decay in PAST_DOMAIN or decay == "rows":
@@ -2943,14 +2961,16 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
       plain version's domain (``PAST_DOMAIN`` at ``RWKV_PAST_SHAPES``,
       exact zeros among them), where the chunked plain form overflows,
       held to the exact scan alone at the same tolerances;
-    - ``rglru_scan`` on every CPU case (``RGLRU_CASES``, nonzero h0) and
-      ``rglru_shapes``: h and h_T bit-equal to both (the same two
-      roundings, no FMA).
+    - ``rglru_scan`` on every CPU case (``RGLRU_CASES``, nonzero h0),
+      ``rglru_shapes`` and the ragged layouts ``RGLRU_RAGGED``: h and
+      h_T bit-equal to both (the same two roundings, no FMA).
 
     Then at the first shape of each (the model's dtypes: bf16 r, k, v and
     f32 w; f32 a, b) the kernel's ms, the plain version's and the bound
-    (:func:`scan_bounds`), and for ``rwkv6_scan`` the serving launches'
-    shapes (``RWKV_SERVE_SHAPES``) and, at the scoring and prefill shapes,
+    (:func:`scan_bounds`), ``rglru_scan``'s ms and bound at the last of
+    ``rglru_shapes`` (the serving prefill), and for ``rwkv6_scan`` the
+    serving launches' shapes (``RWKV_SERVE_SHAPES``) and, at the scoring
+    and prefill shapes,
     the per-token body alone (``rwkv6_scan_body("step", ...)``, the
     exact recurrence the chunked body replaced there) beside the chunked
     one.  No single PyTorch call
@@ -2998,24 +3018,30 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
                 kept["rwkv6_scan"] = args
             del args, got
     rg = rec["rglru_scan"]
-    for shape in RGLRU_CASES + list(rglru_shapes):
+    for shape, kind in ([(s, None) for s in RGLRU_CASES + list(rglru_shapes)]
+                        + list(RGLRU_RAGGED)):
         B, S, R = shape
         a = torch.rand((B, S, R), generator=gen, device=dev) * 0.8 + 0.2
         b = torch.randn((B, S, R), generator=gen, device=dev)
         h0 = torch.randn((B, R), generator=gen, device=dev)
+        if kind == "offset":
+            a, b = _offset_view(torch, a), _offset_view(torch, b)
         hs, hT = rglru_scan(a, b, h0)
         for name, (ws, wT) in (("plain", rglru_scan_plain(a, b, h0)),
                                ("exact scan", rglru_reference(a, b, h0))):
             e = max(float((hs - ws).abs().max()) if hs.numel() else 0.0,
                     float((hT - wT).abs().max()))
             check(torch.equal(hs, ws) and torch.equal(hT, wT),
-                  f"rglru_scan {shape}: not bit-equal to the {name} "
-                  f"(max_abs_err {e})")
+                  f"rglru_scan {shape} {kind or ''}: not bit-equal to the "
+                  f"{name} (max_abs_err {e})")
             rg["max_abs_err"] = max(rg["max_abs_err"], e)
         rg["checked"] += 1
-        if shape == tuple(rglru_shapes[0]):
+        if kind is None and shape == tuple(rglru_shapes[0]):
             kept["rglru_scan"] = (a, b, torch.zeros_like(h0))
+        if kind is None and shape == tuple(rglru_shapes[-1]):
+            kept["rglru_prefill"] = (a, b, torch.zeros_like(h0))
         del a, b, h0, hs, hT
+    rg["cases"] = len(RGLRU_CASES) + len(rglru_shapes) + len(RGLRU_RAGGED)
     if not timing:
         return rec
     for name, fn, plain in (("rwkv6_scan", rwkv6_scan, rwkv6_scan_plain),
@@ -3030,6 +3056,12 @@ def linear_scan_phase(torch, dev, seed, rwkv_shapes, rglru_shapes, timing):
          r["cuda_core_ms"]) = scan_bounds(name, args[0].shape,
                                           args[0].element_size())
         r["library_ms"] = None
+    # RecurrentGemma's serving prefill: 8x the CTAs, a chain of 512 steps
+    args = kept["rglru_prefill"]
+    rg["prefill_shape"] = list(args[0].shape)
+    rg["prefill_ms"] = _per_call_ms(torch, lambda: rglru_scan(*args), 10, 5,
+                                    hold=True)
+    rg["prefill_bound_ms"] = scan_bounds("rglru_scan", args[0].shape, 4)[0]
     args = kept["rwkv6_scan"]
     r6["step_ms"] = _per_call_ms(
         torch, lambda: rwkv6_scan_body("step", *args), 10, 5, hold=True)
@@ -3067,7 +3099,8 @@ def scan_line(ls, seconds, timing):
             f"past the plain version's domain (vs exact only); y within "
             f"{SCAN_Y_TOL} of max|y|, S_T atol {SCAN_S_ATOL} / rtol "
             f"{SCAN_S_RTOL}); rglru_scan == plain == exact scan bit for bit "
-            f"on {rg['checked']} launches ({seconds:.1f} s); ")
+            f"on {rg['checked']} launches ({rg['cases']} cases, the ragged "
+            f"and offset ones among them) ({seconds:.1f} s); ")
     if not timing:
         return line + "timing not measured"
     line += " ".join(
@@ -3078,6 +3111,8 @@ def scan_line(ls, seconds, timing):
         f"cores" + (f", {r['flop'] / TF32_OPS_PER_S * 3e3:.6f} ms as 3xTF32 "
                     f"at 495 / 3 TFLOP/s" if k == "rwkv6_scan" else "")
         + ") library_ms None;" for k, r in ls.items())
+    line += (f" rglru_scan serving prefill {rg['prefill_shape']} ms "
+             f"{rg['prefill_ms']:.6f} bound_ms {rg['prefill_bound_ms']:.6f};")
     return line + (f" rwkv6_scan per-token body alone {r6['step_ms']:.6f} "
                    f"ms at {r6['shape']}; by batch (CTAs = 40 B on 132 SMs): "
                    + ", ".join(f"B {B} {ms:.6f} ms"
@@ -3595,6 +3630,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "step_ms", "by_batch", "prefill_shape", "prefill_ms",
                 "prefill_step_ms", "prefill_bound_ms", "decode_shape",
                 "decode_ms", "decode_bound_ms")})
+        if name == "rglru_scan":
+            rec.update({k: t.get(k) for k in (
+                "prefill_shape", "prefill_ms", "prefill_bound_ms")})
         if name in ("rwkv6_scan", "rglru_scan"):
             p = paths[name][0]
             rec["shape"] = t.get("shape")
@@ -3610,13 +3648,15 @@ def build_line(out=print):
 
     t0 = time.perf_counter()
     lib = _build.build()
-    _build.library()
+    smem = _build.library().rglru_scan_smem_bytes()
     log = (lib.parent / "build.log").read_text()
     cufilt = str(Path(_build.nvcc_path()).parent / "cu++filt")
     out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas "
         "(registers, spill stores / loads in bytes): " + "; ".join(
             f"{src} {n} {r} regs, spills {st} / {ld}"
-            for src, n, r, st, ld in ptxas_report(log, cufilt)))
+            for src, n, r, st, ld in ptxas_report(log, cufilt))
+        + f"; rglru_scan's ring and output stage: {smem} bytes of dynamic "
+        "shared memory a CTA")
 
 
 def heap_only(torch, seed):

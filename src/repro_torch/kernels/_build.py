@@ -93,6 +93,7 @@ SIGNATURES = {
     # a, b, h0, hs, h_T, B, S, R, the (batch, seq) strides of a and b,
     # stream
     "rglru_scan_launch": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_P],
+    "rglru_scan_smem_bytes": [],
 }
 
 _lock = threading.Lock()

@@ -51,6 +51,26 @@ from .. import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 64                  # the widest hd rwkv6_scan.cu is built for
 SHORT_SEQ = 16                 # shorter sequences take the per-token body
+# rglru_scan.cu's tile (kChannels, kSteps, kStages) and row alignment
+# (kAlignBytes), mirrored for the CPU emulation of its schedule
+# (tests/test_torch_rglru_redesign.py holds the two equal): a CTA owns
+# RGLRU_CHANNELS channels of one batch row and streams a and b through a
+# ring of RGLRU_STAGES stages of RGLRU_STEPS steps
+RGLRU_CHANNELS = 32
+RGLRU_STEPS = 64
+RGLRU_STAGES = 6
+RGLRU_ALIGN_BYTES = 16
+
+
+def rglru_rows_aligned(offset: int, batch_stride: int,
+                       seq_stride: int) -> bool:
+    """rglru_scan.cu's ``rows_aligned``: every (batch, step) row of a
+    float32 tensor at byte ``offset`` from a RGLRU_ALIGN_BYTES boundary,
+    with these strides in elements, starts on RGLRU_ALIGN_BYTES, so the
+    ring stages it by 16-byte copies; otherwise by 4-byte ones."""
+    floats = RGLRU_ALIGN_BYTES // 4
+    return (offset % RGLRU_ALIGN_BYTES == 0 and batch_stride % floats == 0
+            and seq_stride % floats == 0)
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,7 +214,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     """RG-LRU recurrence (arguments as :func:`rglru_scan_plain`).  On CUDA
     tensors: one kernel launch on the current stream, no host sync; a and
     b in f32 (cast if not), read through their (batch, seq) strides with
-    the last dim contiguous."""
+    the last dim contiguous, from any base (rows off 16 bytes are staged
+    4 bytes at a time: :func:`rglru_rows_aligned`)."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0, chunk=chunk, block_r=block_r)
     dev = _on_card(a)
@@ -222,4 +243,6 @@ rwkv6_scan.launches = 0
 rglru_scan.launches = 0
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_body",
-           "rglru_scan", "rglru_scan_plain", "MAX_HEAD", "SHORT_SEQ"]
+           "rglru_scan", "rglru_scan_plain", "rglru_rows_aligned",
+           "MAX_HEAD", "SHORT_SEQ", "RGLRU_CHANNELS", "RGLRU_STEPS",
+           "RGLRU_STAGES", "RGLRU_ALIGN_BYTES"]

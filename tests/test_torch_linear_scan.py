@@ -479,3 +479,19 @@ def test_cuda_kernels_match_plain_versions(cuda):
         assert rglru_scan.launches == before + 1
         ps, pT = rglru_scan_plain(*t)
         assert torch.equal(hs, ps) and torch.equal(hT, pT)
+    # the ragged layouts of rglru_scan.cu's ring: R not a multiple of 4, a
+    # view one element into its storage, S = 1, S not a multiple of a
+    # stage's steps, B x R below one CTA's channels, a last tile of 8
+    for i, ((B, S, R), offset) in enumerate((
+            ((1, 100, 50), False), ((2, 77, 2560), True),
+            ((2, 1, 2560), False), ((1, 200, 2560), False),
+            ((1, 50, 12), False), ((2, 100, 40), False))):
+        t = [torch.from_numpy(x).to(cuda)
+             for x in _rglru_inputs(300 + i, B, S, R)]
+        if offset:
+            t[:2] = [torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:]
+                     .view(x.shape) for x in t[:2]]
+            assert t[0].data_ptr() % 16
+        hs, hT = rglru_scan(*t)
+        for ws, wT in (rglru_scan_plain(*t), rglru_reference(*t)):
+            assert torch.equal(hs, ws) and torch.equal(hT, wT)
