@@ -127,11 +127,33 @@ each printing a line:
    ~2 % of max|logit| off its f32 forward on either attention path, and
    the two bf16 paths as far apart, so bf16 logits are held against that
    noise, not to a fixed 2e-2.
-14. ``gemma2`` — Gemma2-2B at full width (d_model 2,304, head dim 256,
+14. ``serve`` — the serving layer on the ``model`` phase's Qwen2-0.5B
+   weights: (a) ``PCScheduler(DecodeExecutor(max_batch=8, max_len=545))``
+   under 8 pc-async sessions of 4 requests (512-token prompts, 32 new
+   tokens, bf16 cache) and ``SerialScheduler`` over the same executor on 8
+   of them — requests/s, tokens/s, device steps, mean batch and the
+   scheduler's counters; every request served once in batches of ≤ 8,
+   mean batch > 1, and every PC batch replayed through the executor with
+   bit-equal tokens; then 8 x 2 requests at tier device with the pipeline
+   on and off, timing the ordering passes' blocking fetches; (b) 64
+   requests with seeded deadlines published behind a gated step (tier
+   device, ``rounds_cap`` 4): each ordering pass's choice ascends by key,
+   and one ordering pass makes one blocking fetch; (c) the ``pq`` workload
+   through ``StructureExecutor`` over K = 4 shards holding the pq phases'
+   4,000,000 keys, 8 sessions x 200 requests at 0 % reads (the PQ's only
+   read, ``values``, dumps the whole heap), every applied batch replayed
+   through ``spec.make_host`` (answers by ``spec.result_ok``, the final
+   multiset equal); (d) ``serve.main`` for every registered workload at
+   the registry's ``serve_kw`` sizes (``--scheduler pc-async``: ``graph``
+   and ``unionfind`` run ``label_prop``, ``map`` and ``sketch``
+   ``sorted_merge``) and on ``pq`` with ``--faults standard`` (a combiner
+   takeover), every request applied once.  ``python3 chip_smoke.py
+   --serve`` runs phases 2 and 14 alone, on fresh random weights.
+15. ``gemma2`` — Gemma2-2B at full width (d_model 2,304, head dim 256,
    vocab 256,000), 2 layers (one local, one full): its scoring forward on
    8,192 tokens held as the model's; the window, both softcaps, the
    sandwich norms, gelu-tanh and the scaled embedding on the kernel path.
-15. ``linear_scan`` kernel checks — ``rwkv6_scan`` (the per-token body
+16. ``linear_scan`` kernel checks — ``rwkv6_scan`` (the per-token body
    below 16 tokens, the two-level chunked body on the tensor cores from
    16 on) against its plain version (the TPU kernel's chunked factored
    form) and the exact scan of ``ref.py`` on every case of the CPU tests
@@ -157,8 +179,8 @@ each printing a line:
    per-token body alone at the scoring and prefill shapes.  The ``build``
    line gives ``rglru_scan``'s dynamic shared memory a CTA beside
    ptxas's registers and spills.
-   ``python3 chip_smoke.py --scan`` runs phases 2 and 15 alone.
-16. ``rwkv6`` — RWKV-6 3B at full width and depth (32 layers, d_model
+   ``python3 chip_smoke.py --scan`` runs phases 2 and 16 alone.
+17. ``rwkv6`` — RWKV-6 3B at full width and depth (32 layers, d_model
    2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, 2,913,405,440
    parameters, random bf16 weights from ``--seed``): the scoring forward
    on 4 x 4,096 tokens (32 ``rwkv6_scan`` launches a forward) and
@@ -171,7 +193,7 @@ each printing a line:
    n_layers + 32 on and the first positions, like its f32 decode steps
    (at the model's f32 floor, ~1e-4 on the plain path too), to 1.5x the
    distance of two plain f32 paths (:func:`scoring`, :func:`model_phase`).
-17. ``recurrentgemma`` — RecurrentGemma-2B at full width (d_model 2,560,
+18. ``recurrentgemma`` — RecurrentGemma-2B at full width (d_model 2,560,
    d_rnn 2,560, 10 query heads and 1 KV head of 256, window 2,048, d_ff
    7,680, vocab 256,000), one period deep (rglru, rglru, local attention;
    912,309,760 parameters): scoring on 1 x 8,192 tokens (2 ``rglru_scan``
@@ -2665,7 +2687,8 @@ def serve(torch, dev, cfg, params, prompts, new, cache_dtype, counters,
 def model_phase(torch, dev, seed, counters, reduced=False,
                 batch=MODEL_BATCH, seq=MODEL_SEQ, serve_batch=SERVE_BATCH,
                 prompt=SERVE_PROMPT, new=SERVE_NEW, *, name="model",
-                arch=MODEL_ARCH, n_layers=None, tag=14, prepare=None):
+                arch=MODEL_ARCH, n_layers=None, tag=14, prepare=None,
+                keep=False):
     """A decoder LM at full width (Qwen2-0.5B's 24 layers unless ``arch``
     and ``n_layers`` say otherwise), random bf16 weights from ``seed``
     (then ``prepare(params)``, if given): the scoring forward
@@ -2691,7 +2714,10 @@ def model_phase(torch, dev, seed, counters, reduced=False,
       against 4,352 in the forward) into ~1e-4 of max|logit| at every
       position, the plain path's own steps included (see :func:`scoring`;
       both paths' medians and the steps over F32_LOGIT_TOL are
-      printed)."""
+      printed).
+
+    With ``keep`` the bf16 weights and the config stay in the returned
+    stats under ``"keep"``, for the ``serve`` phase."""
     from repro_torch.launch.serve import DecodeExecutor
     from repro_torch.models import transformer
 
@@ -2782,7 +2808,530 @@ def model_phase(torch, dev, seed, counters, reduced=False,
         "step_noise_f32": noise32, "step_noise_median_f32": med_noise32,
         "step_tol_f32": tol32,
         "greedy_checked": checked, "greedy_near_ties": tied})
+    if keep:
+        s["keep"] = (cfg, params)
     return s
+
+
+# ---------------------------------------------------------------------------
+# serve: the serving layer — PCScheduler over the sharded deadline PQ, the
+# decode and structure executors, run_serving and its CLI
+# ---------------------------------------------------------------------------
+SERVE_SESSIONS = 8             # decode: 8 sessions x 4 requests (pc-async)
+SERVE_PER_SESSION = 4
+SERIAL_REQUESTS = 8            # serial decode takes ~1 s a request
+PIPE_PER_SESSION = 2           # pipeline on / off: 8 sessions x 2, tier device
+ORDER_REQUESTS = 64            # published behind a gated step
+ORDER_ROUNDS_CAP = 4           # a pass chooses up to 4 x 8 = 32 requests
+STRUCT_SESSIONS = 8            # pq structure serving: 8 sessions x 200
+STRUCT_PER_SESSION = 200
+CLI_FAULT_REQUESTS = 16        # --faults standard: 8 x 16, >= 4 passes
+HEAP = ("heap_kmin", "heap_sift", "heap_insert")
+
+
+class Recorder:
+    """A step function that records each batch the executor applied, in
+    order, with the answers it returned."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.batches = []
+
+    def __call__(self, reqs):
+        outs = self.ex(reqs)
+        self.batches.append((list(reqs), outs))
+        return outs
+
+
+class FetchClock:
+    """Times the blocking fetches (``batched_pq._host_fetch``) that the
+    scheduler's ordering passes make — the deadline PQ's, not the
+    executor's — by flagging the thread while it runs ``_order``."""
+
+    def __init__(self, bpq, sch):
+        self.bpq, self.sch = bpq, sch
+        self.waits = []
+        self.orders = []
+        self._real_fetch = bpq._host_fetch
+        self._tls = threading.local()
+
+    def __enter__(self):
+        tls, waits, real = self._tls, self.waits, self._real_fetch
+        order, orders = self.sch._order, self.orders
+
+        def fetch(tree):
+            if not getattr(tls, "on", False):
+                return real(tree)
+            t0 = time.perf_counter()
+            try:
+                return real(tree)
+            finally:
+                waits.append(time.perf_counter() - t0)
+
+        def timed_order(new):
+            tls.on = True
+            t0 = time.perf_counter()
+            try:
+                return order(new)
+            finally:
+                tls.on = False
+                orders.append(time.perf_counter() - t0)
+
+        self.bpq._host_fetch = fetch
+        self.sch._order = timed_order
+        return self
+
+    def __exit__(self, *exc):
+        self.bpq._host_fetch = self._real_fetch
+        del self.sch._order
+
+    def summary(self):
+        w = self.waits
+        return {"fetches": len(w),
+                "fetch_ms_mean": 1e3 * float(np.mean(w)) if w else None,
+                "fetch_ms_max": 1e3 * max(w) if w else None,
+                "order_ms_mean": (1e3 * float(np.mean(self.orders))
+                                  if self.orders else None)}
+
+
+def _sessions(sch, tab, use_async):
+    """``run_serving``'s client sessions: session s submits ``tab[s]``
+    with deadlines s·per + j, all at once through ``submit_async`` (the
+    pc-async client) or one at a time; returns the answers and seconds."""
+    results, errors = {}, []
+
+    def session(sid):
+        try:
+            per = len(tab[sid])
+            reqs = [(tab[sid][j], float(sid * per + j)) for j in range(per)]
+            if use_async:
+                futs = [sch.submit_async(x, deadline=d) for x, d in reqs]
+                results[sid] = [f.result(timeout=900) for f in futs]
+            elif hasattr(sch, "submit_async"):
+                results[sid] = [sch.submit_async(x, deadline=d).result(
+                    timeout=900) for x, d in reqs]
+            else:
+                results[sid] = [sch.submit(x, deadline=d) for x, d in reqs]
+        except BaseException as exc:       # re-raised on the main thread
+            errors.append(exc)
+
+    ts = [threading.Thread(target=session, args=(s,), daemon=True)
+          for s in range(len(tab))]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in ts), "serve: session threads hung")
+    if errors:
+        raise errors[0]
+    return [results[s] for s in range(len(tab))], seconds
+
+
+def served_once(name, batches, tab, answers, max_batch):
+    """Every request of ``tab`` reached the executor in exactly one batch
+    of ≤ max_batch, and its client got that batch's answer."""
+    by_id = {}
+    for reqs, outs in batches:
+        check(len(reqs) <= max_batch, f"{name}: a batch of {len(reqs)}")
+        for r, o in zip(reqs, outs):
+            check(id(r) not in by_id, f"{name}: a request served twice")
+            by_id[id(r)] = o
+    n = sum(len(row) for row in tab)
+    check(len(by_id) == n, f"{name}: {len(by_id)} requests served of {n}")
+    for row, got in zip(tab, answers):
+        for r, g in zip(row, got):
+            check(by_id[id(r)] is g, f"{name}: a client got another answer")
+
+
+def _launch_delta(counters, before):
+    return {k: f.launches - before[k] for k, f in counters.items()}
+
+
+def _snap(counters):
+    return {k: f.launches for k, f in counters.items()}
+
+
+def decode_serving(torch, dev, cfg, params, seed, counters, *, batch, prompt,
+                   new):
+    """Part a: ``PCScheduler(DecodeExecutor(...))`` under SERVE_SESSIONS
+    pc-async sessions of SERVE_PER_SESSION requests, ``SerialScheduler``
+    over the same executor on SERIAL_REQUESTS of them, every PC batch
+    replayed through the executor (tokens bit-equal), and the pipeline on
+    / off at tier device (PIPE_PER_SESSION requests a session) with the
+    ordering passes' fetch waits."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.launch.serve import DecodeExecutor
+    from repro_torch.serving import PCScheduler, SerialScheduler
+
+    sessions, per = SERVE_SESSIONS, SERVE_PER_SESSION
+    ex = DecodeExecutor(cfg, max_batch=batch, max_len=prompt + new + 1,
+                        params=params, device=dev)
+    rng = np.random.default_rng([seed, 18])
+    prompts = rng.integers(2, cfg.vocab, (sessions * per, prompt),
+                           dtype=np.int64).astype(np.int32)
+    reqs = [{"prompt": p, "n_tokens": new} for p in prompts]
+    ex(reqs[:1])                                # warm-up
+    out = {}
+
+    def run(name, sch_fn, tab, use_async):
+        rec = Recorder(ex)
+        steps0, before = ex.device_steps, _snap(counters)
+        sch = sch_fn(rec)
+        try:
+            answers, secs = _sessions(sch, tab, use_async)
+        finally:
+            if isinstance(sch, PCScheduler):
+                sch.close()
+        served_once(name, rec.batches, tab, answers, batch)
+        n = sum(len(row) for row in tab)
+        s = {"requests": n, "seconds": secs, "req_per_s": n / secs,
+             "tok_per_s": n * new / secs,
+             "device_steps": ex.device_steps - steps0,
+             "mean_batch": float(np.mean([len(b) for b, _ in rec.batches])),
+             "calls": len(rec.batches),
+             "heap_launches": {k: v for k, v in _launch_delta(
+                 counters, before).items() if k in HEAP}}
+        if isinstance(sch, PCScheduler):
+            s.update(passes=sch.passes, eliminated=sch.eliminated,
+                     pq_dispatches=sch.pq_dispatches,
+                     pq_rounds=sch.pq_rounds,
+                     ordering_passes=sum(sch.tier_decisions.values()))
+        return s, rec, answers
+
+    tab = [reqs[s * per:(s + 1) * per] for s in range(sessions)]
+    out["pc"], rec, answers = run(
+        "serve pc", lambda st: PCScheduler(st, max_batch=batch, device=dev),
+        tab, True)
+    check(out["pc"]["mean_batch"] > 1, "serve pc: no batch held 2 requests")
+    t0 = time.perf_counter()
+    for b, (rs, outs) in enumerate(rec.batches):
+        again = ex(rs)
+        check(all(np.array_equal(a, o) for a, o in zip(again, outs)),
+              f"serve pc: batch {b} replayed through the executor gives "
+              "other tokens")
+    out["replayed"] = len(rec.batches)
+    out["replay_s"] = time.perf_counter() - t0
+
+    stab = [[r] for r in reqs[:SERIAL_REQUESTS]]
+    out["serial"], _, sanswers = run("serve serial", SerialScheduler, stab,
+                                     False)
+    pc_by_id = {id(r): o for row, got in zip(tab, answers)
+                for r, o in zip(row, got)}
+    out["serial_equal_pc"] = sum(
+        np.array_equal(a[0], pc_by_id[id(row[0])])
+        for row, a in zip(stab, sanswers))
+
+    pipe = PIPE_PER_SESSION
+    ptab = [reqs[s * pipe:(s + 1) * pipe] for s in range(sessions)]
+    for pipeline in (True, False):
+        clock = {}
+
+        def make(st, pipeline=pipeline, clock=clock):
+            sch = PCScheduler(st, max_batch=batch, tier="device",
+                              pipeline=pipeline, device=dev)
+            clock["c"] = FetchClock(bpq, sch).__enter__()
+            return sch
+
+        try:
+            s, _, _ = run(f"serve pipeline={pipeline}", make, ptab, True)
+        finally:
+            if "c" in clock:
+                clock["c"].__exit__()
+        s.update(clock["c"].summary())
+        out[f"pipeline_{'on' if pipeline else 'off'}"] = s
+    return out
+
+
+def order_check(torch, dev, seed, counters, *, batch,
+                n_req=ORDER_REQUESTS, rounds_cap=ORDER_ROUNDS_CAP):
+    """Part b: ``n_req`` requests with seeded deadlines published while
+    the first (inline) step is gated, tier device: every ordering pass's
+    chosen requests ascend by key, and one ordering pass (``_order``
+    called while the combiner idles) makes exactly one blocking fetch."""
+    from concurrent.futures import Future
+
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.serving import PCScheduler
+    from repro_torch.serving.scheduler import BatchRequest, _Entry
+
+    gate, started = threading.Event(), threading.Event()
+
+    def step(rows):
+        started.set()
+        gate.wait(120)
+        return rows
+
+    before = _snap(counters)
+    sch = PCScheduler(step, max_batch=batch, rounds_cap=rounds_cap,
+                      tier="device", pipeline=False, supervise=False,
+                      device=dev)
+    real, passes = sch._order, []
+
+    def recording(new):
+        chosen = real(new)
+        passes.append([e.key for b in chosen for e in b])
+        return chosen
+
+    sch._order = recording
+    rng = np.random.default_rng([seed, 19])
+    try:
+        f0 = sch.submit_async(-1, deadline=-1.0)
+        check(started.wait(120), "serve order: the first step never ran")
+        deadlines = rng.uniform(0.0, 1000.0, n_req)
+        futs = [sch.submit_async(i, deadline=float(d))
+                for i, d in enumerate(deadlines)]
+        gate.set()
+        got = [f.result(timeout=300) for f in futs]
+        check(got == list(range(n_req)) and f0.result(timeout=60) == -1,
+              "serve order: a request got another answer")
+        for p, keys in enumerate(passes):
+            check(keys == sorted(keys), f"serve order: pass {p} chose "
+                                        f"keys out of order {keys}")
+        sizes = [len(k) for k in passes]
+        check(sum(sizes) == n_req + 1 and max(sizes) <= rounds_cap * batch,
+              f"serve order: passes chose {sizes}")
+        check(sch.pq_dispatches > 0, "serve order: no deadline PQ dispatch")
+        entries = [_Entry(BatchRequest(inputs=i, deadline=float(d)),
+                          Future(), epoch=n_req + 1 + i)
+                   for i, d in enumerate(rng.uniform(0.0, 1000.0, batch))]
+        if dev.type == "cuda":
+            chosen = one_fetch(torch, bpq, lambda: real(entries))
+        else:
+            chosen = real(entries)
+        keys = [e.key for b in chosen for e in b]
+        check(len(keys) == batch and keys == sorted(keys),
+              "serve order: the one-fetch pass chose the wrong requests")
+    finally:
+        gate.set()
+        sch.close()
+    return {"passes": sizes, "pq_dispatches": sch.pq_dispatches,
+            "pq_rounds": sch.pq_rounds,
+            "heap_launches": {k: v for k, v in _launch_delta(
+                counters, before).items() if k in HEAP}}
+
+
+def structure_serving(torch, dev, seed, counters, init, *, per, batch,
+                      sessions=STRUCT_SESSIONS):
+    """Part c: ``StructureExecutor(substrate.get("pq"))`` over K = 4 shards
+    holding the pq phases' prefilled keys, driven through ``PCScheduler``
+    (tier device, so each pass also runs the deadline PQ) by ``sessions``
+    blocking sessions of ``per`` requests from ``_structure_requests`` at
+    0 % reads: the PQ's only read, ``values``, dumps the whole heap.  Every
+    applied batch is replayed in order through a ``SequentialBatchedPQ``
+    built from the seeded ``init`` keys (the device's prefilled multiset
+    must equal it first); every answer must satisfy ``spec.result_ok`` and
+    the final multisets must be equal."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.core import substrate
+    from repro_torch.core.sharded_pq import SequentialBatchedPQ
+    from repro_torch.launch.serve import StructureExecutor, _structure_requests
+    from repro_torch.serving import PCScheduler
+
+    spec = substrate.get("pq")
+    kw = dict(capacity=shard_capacity(len(init) + sessions * per, 4),
+              c_max=C_MAX, n_shards=4)
+    t0 = time.perf_counter()
+    ex = StructureExecutor(spec, device=dev, values=init, **kw)
+    oracle = SequentialBatchedPQ(init, c_max=C_MAX)
+    check(np.array_equal(np.asarray(ex.ds.values(), np.float32),
+                         np.asarray(oracle.values(), np.float32)),
+          "serve pq: the prefilled multiset differs from the seeded keys")
+    setup_s = time.perf_counter() - t0
+    tab = _structure_requests(spec, np.random.default_rng([seed, 20]),
+                              sessions, per, 0, kw)
+    rec = Recorder(ex)
+    before = _snap(counters)
+    with PCScheduler(rec, max_batch=batch, tier="device", device=dev) as sch:
+        with FetchClock(bpq, sch) as clock:
+            answers, secs = _sessions(sch, tab, False)
+    launches = _launch_delta(counters, before)
+    served_once("serve pq", rec.batches, tab, answers, batch)
+    t0 = time.perf_counter()
+    for b, (rs, outs) in enumerate(rec.batches):
+        ms = [r["method"] for r in rs]
+        want = oracle.update_batch(ms, [r["input"] for r in rs])
+        check(all(spec.result_ok(m, g, w)
+                  for m, g, w in zip(ms, outs, want)),
+              f"serve pq: batch {b} answers {outs} != the oracle's {want}")
+    check(np.array_equal(np.asarray(ex.ds.values(), np.float32),
+                         np.asarray(oracle.values(), np.float32)),
+          "serve pq: final multiset differs from the oracle's")
+    n = sessions * per
+    ordering = sum(sch.tier_decisions.values())
+    return {"requests": n, "seconds": secs, "ops_per_s": n / secs,
+            "calls": len(rec.batches), "mean_batch": sch.mean_batch,
+            "ordering_passes": ordering, "pq_dispatches": sch.pq_dispatches,
+            "pq_rounds": sch.pq_rounds, "eliminated": sch.eliminated,
+            "capacity": kw["capacity"], "setup_s": setup_s,
+            "replay_s": time.perf_counter() - t0,
+            "heap_launches": {k: launches[k] for k in HEAP},
+            "heap_per_pass": {k: launches[k] / max(ordering, 1)
+                              for k in HEAP}, **clock.summary()}
+
+
+def cli_serving(torch, dev, counters):
+    """Part d: ``serve.main`` once for each registered workload at the
+    registry's ``serve_kw`` sizes (--scheduler pc-async), and once on pq
+    with --faults standard; each run must serve every request exactly
+    once (the executor's batches counted by request identity), the faults
+    run must show a combiner takeover.  The injected kill's traceback is
+    counted (``threading.excepthook``), not printed."""
+    import io
+
+    from repro_torch.core import substrate
+    from repro_torch.core.faults import InjectedCombinerKill
+    from repro_torch.launch import serve
+
+    runs = [(w, ["--workload", w, "--scheduler", "pc-async"])
+            for w in substrate.names()]
+    runs.append(("pq faults", ["--workload", "pq", "--scheduler",
+                               "pc-async", "--faults", "standard",
+                               "--requests", str(CLI_FAULT_REQUESTS)]))
+    real_call = serve.StructureExecutor.__call__
+    real_hook, kills = threading.excepthook, []
+
+    def hook(args):
+        if isinstance(args.exc_value, InjectedCombinerKill):
+            kills.append(args.thread.name)
+        else:
+            real_hook(args)
+
+    lines, before = [], _snap(counters)
+    for name, argv in runs:
+        seen = []
+
+        def call(self, reqs, seen=seen):
+            seen.extend(id(r) for r in reqs)
+            return real_call(self, reqs)
+
+        run_before = _snap(counters)
+        serve.StructureExecutor.__call__ = call
+        threading.excepthook = hook
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                stats = serve.main(argv + ["--device", dev.type])
+        finally:
+            serve.StructureExecutor.__call__ = real_call
+            threading.excepthook = real_hook
+        check(len(seen) == len(set(seen)) == stats["requests"],
+              f"serve cli {name}: {len(seen)} requests applied "
+              f"({len(set(seen))} distinct) of {stats['requests']}")
+        if "faults" in name:
+            check(stats["faults"]["scheduler_takeovers"] >= 1
+                  and stats["faults"]["combiner_kills"] == len(kills) == 1,
+                  f"serve cli: {len(kills)} combiner kills, "
+                  f"{stats['faults']} under --faults standard")
+        lines.append((name, stats, _nonzero(_launch_delta(counters,
+                                                           run_before))))
+    return lines, _launch_delta(counters, before)
+
+
+def serve_phase(torch, dev, seed, counters, cfg, params, init, *,
+                batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
+                struct_per=STRUCT_PER_SESSION, out=print):
+    """Parts a-d (:func:`decode_serving`, :func:`order_check`,
+    :func:`structure_serving`, :func:`cli_serving`) with every kernel's
+    count set to 0 just before and read just after; the heap kernels,
+    ``label_prop`` and ``sorted_merge`` must each have launched."""
+    t_phase = time.perf_counter()
+    s = {}
+
+    def parts():
+        t0 = time.perf_counter()
+        s["decode"] = decode_serving(
+            torch, dev, cfg, params, seed, counters, batch=batch,
+            prompt=prompt, new=new)
+        s["decode"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s["order"] = order_check(torch, dev, seed, counters, batch=batch)
+        s["order"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s["structure"] = structure_serving(
+            torch, dev, seed, counters, init, per=struct_per, batch=batch)
+        s["structure"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s["cli"], s["cli_launches"] = cli_serving(torch, dev, counters)
+        s["cli_s"] = time.perf_counter() - t0
+
+    _, s["launches"] = counted(torch, dev, "serve", counters,
+                               HEAP + ("label_prop", "sorted_merge"), parts)
+    if dev.type == "cuda":
+        for k in ("label_prop", "sorted_merge"):
+            check(s["cli_launches"][k] > 0, f"serve cli: {k} never launched")
+        for k in HEAP:
+            check(s["order"]["heap_launches"][k] > 0
+                  and s["structure"]["heap_launches"][k] > 0,
+                  f"serve: {k} never launched by the deadline PQ")
+    s["seconds"] = time.perf_counter() - t_phase
+    for line in serve_lines(s, dev, batch, prompt, new):
+        out(line)
+    return s
+
+
+def _ms(x):
+    return "n/a" if x is None else f"{x:.3f}"
+
+
+def serve_lines(s, dev, batch, prompt, new):
+    d, o, st = s["decode"], s["order"], s["structure"]
+
+    def rates(r):
+        return (f"{r['req_per_s']:.3f} requests/s, {r['tok_per_s']:.1f} "
+                f"generated tokens/s ({r['requests']} requests in "
+                f"{r['seconds']:.3f} s), device_steps {r['device_steps']}, "
+                f"{r['calls']} executor calls, mean batch "
+                f"{r['mean_batch']:.3f}")
+
+    def sched(r):
+        return (f"passes {r['passes']} in {r['ordering_passes']} ordering "
+                f"passes, eliminated {r['eliminated']}, pq_dispatches "
+                f"{r['pq_dispatches']}, pq_rounds {r['pq_rounds']}, heap "
+                f"launches {r['heap_launches']}")
+
+    def pipe(r):
+        return (f"{r['req_per_s']:.3f} requests/s, mean batch "
+                f"{r['mean_batch']:.3f}, {r['fetches']} ordering fetches "
+                f"waiting {_ms(r['fetch_ms_mean'])} ms on average (max "
+                f"{_ms(r['fetch_ms_max'])}), ordering pass "
+                f"{_ms(r['order_ms_mean'])} ms on average")
+
+    yield (f"serve decode: {batch} slots x ({prompt} + {new}) tokens, "
+           f"bf16 cache; pc-async: {rates(d['pc'])}, {sched(d['pc'])}; "
+           f"serial: {rates(d['serial'])}, heap launches "
+           f"{d['serial']['heap_launches']}; every request served once, "
+           f"batches <= {batch}, {d['replayed']} PC batches replayed "
+           f"through the executor with bit-equal tokens "
+           f"({d['replay_s']:.1f} s); serial tokens equal to PC's for "
+           f"{d['serial_equal_pc']}/{d['serial']['requests']} requests "
+           f"(not held); tier device, pipeline on: "
+           f"{pipe(d['pipeline_on'])}; pipeline off: "
+           f"{pipe(d['pipeline_off'])} ({d['part_s']:.1f} s)")
+    yield (f"serve order: {o['passes']} requests chosen by the ordering "
+           f"passes, each ascending; pq_dispatches {o['pq_dispatches']}, "
+           f"pq_rounds {o['pq_rounds']}, heap launches "
+           f"{o['heap_launches']}; one ordering pass made one blocking "
+           f"fetch" + ("" if dev.type == "cuda" else " (not checked here)")
+           + f" ({o['part_s']:.1f} s)")
+    yield (f"serve pq: {st['ops_per_s']:.1f} ops/s ({st['requests']} "
+           f"requests in {st['seconds']:.3f} s, 8 sessions, 0% reads), "
+           f"{st['calls']} executor calls, mean batch "
+           f"{st['mean_batch']:.3f}, {st['ordering_passes']} ordering "
+           f"passes, pq_dispatches {st['pq_dispatches']}, pq_rounds "
+           f"{st['pq_rounds']}, heap launches {st['heap_launches']} "
+           f"({', '.join(f'{k} {v:.2f}' for k, v in st['heap_per_pass'].items())}"
+           f" an ordering pass, workload PQ included), ordering fetches "
+           f"{st['fetches']} waiting {_ms(st['fetch_ms_mean'])} ms on "
+           f"average (max {_ms(st['fetch_ms_max'])}), ordering pass "
+           f"{_ms(st['order_ms_mean'])} ms; capacity {st['capacity']} a "
+           f"shard, set-up {st['setup_s']:.1f} s; every request served "
+           f"once, answers and final multiset equal to the oracle's "
+           f"(replay {st['replay_s']:.1f} s; {st['part_s']:.1f} s)")
+    for name, stats, launches in s["cli"]:
+        yield f"serve cli {name}: {stats}; launches {launches}"
+    yield (f"serve: kernel launches {_nonzero(s['launches'])}; "
+           f"{s['seconds']:.1f} s")
 
 
 def gemma2_phase(torch, dev, seed, counters, reduced=False, seq=GEMMA_SEQ):
@@ -3318,8 +3867,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         serve_prompt=SERVE_PROMPT, serve_new=SERVE_NEW, gemma_seq=GEMMA_SEQ,
         rwkv_shapes=RWKV_SHAPES, rglru_shapes=RGLRU_SHAPES,
         rwkv_batch=RWKV_BATCH, rwkv_seq=RWKV_SEQ, rg_seq=RG_SEQ,
-        timing=True, out=print):
-    """Phases 2–17; returns the kernel records and each path's stats.
+        struct_per=STRUCT_PER_SESSION, timing=True, out=print):
+    """Phases 2–18; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
     wrappers run their plain versions.)"""
@@ -3567,7 +4116,19 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                     f"{k} {ms:.3f} ms x {n} ({ms / n:.4f} a launch)"
                     for k, (ms, n) in pr["ours"].items()) or "none"))
 
-    lm("model", model_phase, batch=model_batch, seq=model_seq, **serving)
+    lm("model", model_phase, batch=model_batch, seq=model_seq, keep=True,
+       **serving)
+    cfg_m, params_m = results["model"].pop("keep")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    s = serve_phase(torch, dev, seed, counters, cfg_m, params_m, init,
+                    batch=serve_batch, prompt=serve_prompt, new=serve_new,
+                    struct_per=struct_per, out=out)
+    if dev.type == "cuda":
+        s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    results["serve"] = s
+    del params_m
     lm("gemma2", gemma2_phase, seq=gemma_seq)
 
     t0 = time.perf_counter()
@@ -3585,13 +4146,13 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     lm("recurrentgemma", model_phase, batch=1, seq=rg_seq,
        name="recurrentgemma", arch=RG_ARCH, n_layers=RG_LAYERS, tag=17,
        prepare=slow_decay, **serving)
-    out(f"run: phases 2-17 in {time.perf_counter() - t_run:.1f} s")
+    out(f"run: phases 2-18 in {time.perf_counter() - t_run:.1f} s")
 
-    paths = {"heap_kmin": ("pq-single", "pq-sharded"),
-             "heap_sift": ("pq-single", "pq-sharded"),
-             "heap_insert": ("pq-single", "pq-sharded"),
-             "label_prop": ("graph", "unionfind"),
-             "sorted_merge": ("map", "sketch"),
+    paths = {"heap_kmin": ("pq-single", "pq-sharded", "serve"),
+             "heap_sift": ("pq-single", "pq-sharded", "serve"),
+             "heap_insert": ("pq-single", "pq-sharded", "serve"),
+             "label_prop": ("graph", "unionfind", "serve"),
+             "sorted_merge": ("map", "sketch", "serve"),
              "flash_attention": ("model", "gemma2", "recurrentgemma"),
              "rwkv6_scan": ("rwkv6",),
              "rglru_scan": ("recurrentgemma",)}
@@ -3690,12 +4251,33 @@ def label_prop_only(torch, seed):
 
 
 def scan_only(torch, seed):
-    """``--scan``: phases 2 and 15 alone, for work on the scan kernels."""
+    """``--scan``: phases 2 and 16 alone, for work on the scan kernels."""
     build_line()
     t0 = time.perf_counter()
     ls = linear_scan_phase(torch, torch.device("cuda"), seed, RWKV_SHAPES,
                            RGLRU_SHAPES, True)
     print(scan_line(ls, time.perf_counter() - t0, True))
+
+
+def serve_only(torch, seed):
+    """``--serve``: phases 2 and 14 alone, on fresh random Qwen2-0.5B
+    weights, for work on the serving layer."""
+    from repro_torch.kernels import (heap_insert, heap_kmin, heap_sift,
+                                     label_prop, sorted_merge)
+    from repro_torch.models import transformer
+
+    build_line()
+    dev = torch.device("cuda")
+    cfg = _model_cfg(MODEL_ARCH, False)
+    params = transformer.model_init(seed, cfg, device=dev)
+    init = np.random.default_rng([seed, 0]).uniform(
+        0, KEY_RANGE, N_KEYS).astype(np.float32)
+    counters = {"heap_kmin": heap_kmin.k_smallest_sharded,
+                "heap_sift": heap_sift.sift_wavefront_sharded,
+                "heap_insert": heap_insert.phase4_sharded,
+                "label_prop": label_prop.propagate,
+                "sorted_merge": sorted_merge.merge_compact_sharded}
+    serve_phase(torch, dev, seed, counters, cfg, params, init)
 
 
 def main(argv=None) -> int:
@@ -3706,13 +4288,16 @@ def main(argv=None) -> int:
                          "not the checks")
     ap.add_argument("--scan", action="store_true",
                     help="only the build and the linear_scan kernel checks "
-                         "and timings (phases 2 and 15)")
+                         "and timings (phases 2 and 16)")
     ap.add_argument("--heap", action="store_true",
                     help="only the build and the heap kernel checks and "
                          "timings (phases 2 and 3)")
     ap.add_argument("--merge", action="store_true",
                     help="only the build and the sorted_merge kernel checks "
                          "and timings (phases 2 and 9)")
+    ap.add_argument("--serve", action="store_true",
+                    help="only the build and the serving phase, on fresh "
+                         "random weights (phases 2 and 14)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -3754,6 +4339,9 @@ def main(argv=None) -> int:
         return 0
     if args.label_prop:
         label_prop_only(torch, args.seed)
+        return 0
+    if args.serve:
+        serve_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

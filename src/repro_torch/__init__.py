@@ -4,7 +4,9 @@
 have been ported — the parallel-combining priority queue, the dynamic
 connectivity graph, the union-find, the ordered map and the counting
 sketch (``core``), the dense decoder model stack (``models``,
-``configs``, and the decode executor in ``launch``), and their six
+``configs``), the serving layer (the parallel-combining scheduler over
+the sharded deadline PQ in ``serving``; the decode and structure
+executors, ``run_serving`` and the CLI in ``launch``), and their eight
 kernels, hand-written in CUDA C++ for Hopper (``kernels``).  It imports
 neither JAX nor the reference package ``repro``.  Entry points run on the
 GPU unless the caller passes ``device="cpu"``.

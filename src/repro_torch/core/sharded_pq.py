@@ -25,6 +25,7 @@ because each shard's frontier search is deterministic.
 """
 from __future__ import annotations
 
+import heapq
 from typing import Any, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -68,6 +69,16 @@ def host_key(x: float) -> float:
     if abs(k) < _TINY:
         k = np.float32(0.0)
     return float(k)
+
+
+def host_keys(xs) -> np.ndarray:
+    """:func:`host_key` over an array: the f32 keys the device heap
+    stores, as one numpy pass."""
+    k = np.asarray(xs, np.float32)
+    if np.isnan(k).any():
+        raise ValueError("key must not be NaN")
+    big = np.finfo(np.float32).max
+    return _flush_host(np.clip(k, -big, big))
 
 
 class ShardedHeapState(NamedTuple):
@@ -517,10 +528,8 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
 
     def values(self) -> list:
         a, sizes = to_numpy(self.state)
-        out: list = []
-        for k in range(self.n_shards):
-            out.extend(a[k, 1:sizes[k] + 1].tolist())
-        return sorted(out)
+        return np.sort(np.concatenate(
+            [a[k, 1:sizes[k] + 1] for k in range(self.n_shards)])).tolist()
 
     # -- BatchedStructure protocol surface (DESIGN.md §16) --------------------
     def update_batch_async(self, methods: Sequence[str],
@@ -588,13 +597,17 @@ class SequentialBatchedPQ:
     inserts advancing together (exactly :func:`expand_rounds`), each
     slice's extracts seeing the pre-SLICE multiset, answered ascending
     with per-slice None padding past the live size; inserts return None.
-    ``c_max=None`` means one unbounded slice (the pre-batch rule)."""
+    ``c_max=None`` means one unbounded slice (the pre-batch rule).  The
+    keys live in a binary heap (``heapq``), so an oracle of millions of
+    keys costs O(log n) an op."""
 
     read_only: Set[str] = {"values", "peek_min"}
 
     def __init__(self, values=None, c_max: Optional[int] = None):
-        self._v: List[float] = sorted(
-            host_key(float(np.float32(v))) for v in (values or []))
+        keys = (values if isinstance(values, np.ndarray)
+                else list(values or []))
+        # a sorted list is a valid heap
+        self._v: List[float] = np.sort(host_keys(keys)).tolist()
         self.c_max = c_max
 
     def __len__(self) -> int:
@@ -615,10 +628,11 @@ class SequentialBatchedPQ:
         take: List[Any] = []
         while ne > 0 or ins:
             k_e, k_i = min(ne, c), min(len(ins), c)
-            vals, self._v = self._v[:k_e], self._v[k_e:]
-            take.extend(vals)
-            take.extend([None] * (k_e - len(vals)))   # empty-queue pads
-            self._v = sorted(self._v + ins[:k_i])
+            n = min(k_e, len(self._v))
+            take.extend(heapq.heappop(self._v) for _ in range(n))
+            take.extend([None] * (k_e - n))           # empty-queue pads
+            for v in ins[:k_i]:
+                heapq.heappush(self._v, v)
             ne -= k_e
             ins = ins[k_i:]
         out: List[Any] = []
@@ -636,7 +650,8 @@ class SequentialBatchedPQ:
         for m in methods:
             if m not in ("values", "peek_min"):
                 raise ValueError(f"unknown read method {m!r}")
-        return [list(self._v) if m == "values"
+        vals = self.values() if "values" in methods else []
+        return [list(vals) if m == "values"
                 else (self._v[0] if self._v else None) for m in methods]
 
     def apply(self, method: str, input: Any = None) -> Any:
@@ -645,7 +660,7 @@ class SequentialBatchedPQ:
         return self.update_batch([method], [input])[0]
 
     def values(self) -> List[float]:
-        return list(self._v)
+        return sorted(self._v)
 
 
 def _gen_update(rng, k, ctx):
@@ -719,4 +734,5 @@ substrate.register(substrate.StructureSpec(
     # (AsyncBatchResult), not read-resolves-updates
     reads_resolve_updates=False,
     megapass=False,
+    extras={"serve_kw": dict(capacity=4096, c_max=16, n_shards=4)},
 ))

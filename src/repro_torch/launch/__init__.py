@@ -1,2 +1,3 @@
-"""Launch code of the port (``repro.launch``' twin): so far the decode
-executor of the serving path."""
+"""Launch code of the port (``repro.launch``' twin): the serving entry point —
+the decode and structure executors, ``run_serving`` and its CLI
+(``python -m repro_torch.launch.serve``)."""

@@ -43,6 +43,7 @@ MODULES = [
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.lm", "repro_torch.models.convert",
     "repro_torch.configs", "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.serving", "repro_torch.serving.scheduler",
 ] + [f"repro_torch.configs.{a}" for a in (
     "deepseek_v2_lite_16b", "gemma2_2b", "hubert_xlarge", "internlm2_20b",
     "llama4_scout_17b_a16e", "llama_3_2_vision_11b", "qwen2_0_5b",

@@ -198,3 +198,56 @@ def test_registry_entry_builds_the_port_structure():
                    for m, g, w in zip(methods, got, want))
     spec.dump_compare(ds, host)
     assert tsub.names() == ["graph", "map", "pq", "sketch", "unionfind"]
+
+
+def oracle_batches(rng, n_batches=12):
+    """Mixed batches over duplicates, ±0.0, subnormals, ±inf and 1e39,
+    with runs of extracts past the live size."""
+    pool = [0.0, -0.0, 1e-40, -1e-42, np.inf, -np.inf, 1e39, -1e39,
+            3.5, 3.5, -2.0]
+    out = []
+    for _ in range(n_batches):
+        ext = rng.random() < 0.3
+        n = int(rng.integers(20, 48) if ext else rng.integers(0, 24))
+        methods, inputs = [], []
+        for _ in range(n):
+            if rng.random() < (0.8 if ext else 0.4):
+                methods.append("extract_min")
+                inputs.append(None)
+            else:
+                methods.append("insert")
+                inputs.append(float(pool[rng.integers(len(pool))])
+                              if rng.random() < 0.4
+                              else float(rng.uniform(-50, 50)))
+        out.append((methods, inputs))
+    return out
+
+
+def bits(xs):
+    return [None if x is None else repr(x) for x in xs]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("c_max", [None, 1, 3, 16])
+def test_sequential_oracle_matches_reference(seed, c_max):
+    """The port's heap-backed ``SequentialBatchedPQ`` against the
+    reference's sorted-list one: every batch's answers (None padding
+    included, -0.0 told from 0.0), ``peek_min`` and ``values`` after
+    every batch, the port's oracle built from a numpy array."""
+    rng = np.random.default_rng([seed, 7])
+    init = np.concatenate([
+        np.array([0.0, -0.0, 1e-40, np.inf, -np.inf, 3.5, 3.5], np.float32),
+        rng.uniform(-50, 50, int(rng.integers(0, 20))).astype(np.float32)])
+    rng.shuffle(init)
+    tq = tspq.SequentialBatchedPQ(init, c_max=c_max)
+    jq = jspq.SequentialBatchedPQ(init.tolist(), c_max=c_max)
+    assert bits(tq.values()) == bits(jq.values())
+    for methods, inputs in oracle_batches(rng):
+        assert bits(tq.update_batch(methods, inputs)) == bits(
+            jq.update_batch(methods, inputs))
+        assert len(tq) == len(jq)
+        assert bits(tq.values()) == bits(jq.values())
+        tp, tv = tq.read_batch(["peek_min", "values"], [None, None])
+        jp, jv = jq.read_batch(["peek_min", "values"], [None, None])
+        assert bits([tp]) == bits([jp]) and bits(tv) == bits(jv)
+        assert bits([tq.apply("peek_min")]) == bits([jq.apply("peek_min")])
