@@ -34,6 +34,28 @@ each printing a line:
    replay of 240 combined batches through the kernel pass and the plain
    pass (both on the card, bit-equal after every batch) against
    ``SequentialHeap``.
+   ``megapass`` (after phase 5, on the pq-sharded queue) — the PQ's
+   rounds as packed device rows, one CUDA-graph replay a dispatch:
+   (a) 40 seeded round lists (update rounds of 1 to 3 x C_MAX ops with
+   repeated keys, ties, -0.0 and subnormals; ``peek_min`` rounds; empty
+   rounds; 1 to 32 rows; 8 lists on a near-empty heap, where extracts
+   pass a shard's size) through the queue (replay), through
+   ``_sharded_mixed_rows`` on a clone (eager) and with the plain phases
+   on a clone: heaps, outs and every handle's answers bit-equal, pairs of
+   dispatches consumed in reverse, ``memory_reserved`` before and after
+   the captures; (b) under ``one_fetch``, a dispatch and its handles make
+   one blocking fetch and no other sync, one replay, and the heap
+   kernels' counts rise by the captured launches; (c)
+   ``pc_megapass_priority_queue`` over 4,000,000 keys, 8 threads x 200
+   ops of 45 % insert, 45 % extract_min, 10 % peek_min, megapass on and
+   off, every dispatch replayed through ``SequentialBatchedPQ``; (d) host
+   and device ms of one dispatch at 1, 4, 8 and 16 rows, replayed and
+   eager, and the capture's ms; (e) C4 on the card: ``heap_kmin``
+   captured once and replayed at ne = 1, 5 and 16, ``sorted_merge``
+   captured once and replayed twice on new inputs, both equal to their
+   plain versions, and the merge's epoch field spent on the card.
+   ``python3 chip_smoke.py --megapass`` runs phase 2 and this phase
+   alone.
 6. ``label_prop`` kernel checks — seeded graphs at 1,000,000 vertices
    (the graph's half-populated tree edge buffer with junk in its invalid
    slots, (0,0) padding + self-loops + duplicate edges, isolated
@@ -147,7 +169,9 @@ each printing a line:
    the registry's ``serve_kw`` sizes (``--scheduler pc-async``: ``graph``
    and ``unionfind`` run ``label_prop``, ``map`` and ``sketch``
    ``sorted_merge``) and on ``pq`` with ``--faults standard`` (a combiner
-   takeover), every request applied once.  ``python3 chip_smoke.py
+   takeover), and on ``pq`` with ``--megapass``, plain and with
+   ``--faults standard``, every request applied once; the deadline PQ's
+   graph replays are printed.  ``python3 chip_smoke.py
    --serve`` runs phases 2 and 14 alone, on fresh random weights.
 15. ``gemma2`` — Gemma2-2B at full width (d_model 2,304, head dim 256,
    vocab 256,000), 2 layers (one local, one full): its scoring forward on
@@ -275,6 +299,24 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def count(dev, n: int):
+    """A () int32 count on ``dev``: how the PQ's kernels take theirs."""
+    import torch
+
+    return torch.tensor(int(n), dtype=torch.int32, device=dev)
+
+
+def pq_row(dev, ne: int, buf, ni: int, tag: int = 0):
+    """One packed pass row (``batched_pq.pack_rows``) on ``dev``: the
+    counts and the insert values in one host-to-device copy."""
+    import torch
+
+    from repro_torch.core import batched_pq as bpq
+
+    return torch.from_numpy(bpq.pack_rows(
+        [(tag, ne, np.asarray(buf, np.float32), ni)], C_MAX)[0]).to(dev)
+
+
 # ---------------------------------------------------------------------------
 # kernels: every launch held against the plain version on cloned inputs
 # ---------------------------------------------------------------------------
@@ -311,9 +353,14 @@ class CheckedPhases:
                 f"{int((got != want).sum())} elements differ")
 
     def kmin(self, a, size, ne, *, c_max):
+        import torch
+
         from repro_torch.kernels import heap_kmin
 
-        self.inputs["heap_kmin"] = (a.clone(), size.clone(), ne, c_max)
+        if not isinstance(ne, torch.Tensor):      # the checks' own counts
+            ne = count(a.device, ne)
+        self.inputs["heap_kmin"] = (a.clone(), size.clone(), ne.clone(),
+                                    c_max)
         ids, vals = heap_kmin.k_smallest_sharded(a, size, ne, c_max=c_max)
         pids, pvals = heap_kmin.k_smallest_plain(a, size, ne, c_max)
         self._diff("heap_kmin", "ids", ids, pids)
@@ -485,7 +532,7 @@ def wide_cases(torch, dev, rng, gen, cap, checked, K=4):
         vals = torch.full((K, c), math.inf, device=dev)
         vals[:, :ni] = torch.floor(torch.rand((K, ni), generator=gen,
                                               device=dev) * 2e6)
-        phase1 = heap_kmin.k_smallest_plain(a, size, c, c)
+        phase1 = heap_kmin.k_smallest_plain(a, size, count(dev, c), c)
         lanes = torch.full((K,), c, dtype=torch.int32, device=dev)
         a2, size2, _, _, starts, active, _, _ = bpq._phases12(
             a, size, lanes, vals, torch.full_like(lanes, ni), c_max=c,
@@ -521,15 +568,15 @@ def kernel_phase(torch, dev, seed, caps, n_cases):
             fresh = rng.uniform(0, 2e6, ni).astype(np.float32)
             dups = np.float32(root if math.isfinite(root) else 0.0)
             buf[:ni] = np.where(rng.random(ni) < 0.3, dups, np.floor(fresh))
-            vals = torch.tensor(buf, device=dev)
+            row = pq_row(dev, ne, buf, ni)
             if K == 1:
                 st = bpq.HeapState(a[0], size[0])
-                bpq.apply_batch_impl(st, ne, vals, ni, c_max=C_MAX,
-                                     phases=phases)
+                bpq.apply_batch_impl(st, row, c_max=C_MAX,
+                                     n_pull=max(ne - ni, 0), phases=phases)
             else:
                 st = spq.ShardedHeapState(a, size)
-                spq._sharded_apply_batch(st, ne, vals, ni, c_max=C_MAX,
-                                         n_shards=K, phases=phases)
+                spq._sharded_apply_batch(st, row, c_max=C_MAX, n_shards=K,
+                                         n_pull=ne, phases=phases)
     K, cap = caps[-1]
     checked.wide = wide_cases(torch, dev, rng, gen, cap, checked, K)
     checked.wide["heap_kmin"] = kmin_cases(torch, dev, rng, gen, cap,
@@ -540,15 +587,14 @@ def kernel_phase(torch, dev, seed, caps, n_cases):
     a, size = random_heap_stack(torch, K, cap, sizes, gen, dup=False,
                                 dev=dev)
     st = spq.ShardedHeapState(a, size)
-    spq._sharded_apply_batch(st, C_MAX, torch.full((C_MAX,), math.inf,
-                                                   device=dev), 0,
+    spq._sharded_apply_batch(st, pq_row(dev, C_MAX, np.full(C_MAX, np.inf),
+                                        0),
                              c_max=C_MAX, n_shards=K, phases=phases)
     timed = {"heap_kmin": checked.inputs["heap_kmin"],
              "heap_sift": checked.inputs["heap_sift"]}
-    ins = torch.tensor(np.floor(rng.uniform(0, 2e6, C_MAX)),
-                       dtype=torch.float32, device=dev)
-    spq._sharded_apply_batch(st, 0, ins, C_MAX, c_max=C_MAX, n_shards=K,
-                             phases=phases)
+    ins = np.floor(rng.uniform(0, 2e6, C_MAX))
+    spq._sharded_apply_batch(st, pq_row(dev, 0, ins, C_MAX), c_max=C_MAX,
+                             n_shards=K, phases=phases)
     timed["heap_insert"] = checked.inputs["heap_insert"]
     for name, n in checked.calls.items():
         check(n > 0, f"{name}: never checked")
@@ -644,7 +690,7 @@ def time_kernels(torch, timed):
         plain_ms=_per_launch_ms(torch, lambda a: heap_kmin.k_smallest_plain(
             a, size, ne, c_max), plain_ring, a_in, hold=False),
         library_ms=_per_launch_ms(torch, lambda a: torch.topk(
-            a, ne, dim=1, largest=False), ring, a_in, hold=False),
+            a, int(ne), dim=1, largest=False), ring, a_in, hold=False),
         bytes=4 * (K + 2 * steps) + 4 * K + 8 * K * c_max,
         ops=steps * (2 * c_max + 1))
 
@@ -748,9 +794,8 @@ def replay(torch, pq, pass_fn, plain_phases, n_batches, seed):
         ins = np.where(rng.random(ni) < 0.25, np.float32(head), fresh)
         buf = np.full(C_MAX, np.inf, np.float32)
         buf[:ni] = ins
-        vals = torch.tensor(buf, device=dev)
-        _, out_k, _ = pass_fn(st_k, ne, vals, ni)
-        _, out_p, _ = pass_fn(st_p, ne, vals, ni, phases=plain_phases)
+        _, out_k, _ = pass_fn(st_k, ne, buf, ni)
+        _, out_p, _ = pass_fn(st_p, ne, buf, ni, phases=plain_phases)
         check(torch.equal(st_k.a, st_p.a) and torch.equal(st_k.size,
                                                           st_p.size)
               and torch.equal(out_k, out_p),
@@ -824,6 +869,469 @@ def pq_phase(torch, name, engine, init, counters, seed, threads, ops,
     stats["replayed"] = replay(torch, pq, pass_fn, plain_phases, n_replay,
                                seed)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# megapass: the PQ's rounds as one CUDA-graph replay a dispatch
+# ---------------------------------------------------------------------------
+MEGA_LISTS = 40                # seeded round lists, replay == eager == plain
+MEGA_SMALL = 8                 # of them on a near-empty heap
+MEGA_MAX_ROWS = 32
+MEGA_TIMED_ROWS = (1, 4, 8, 16)
+MEGA_REPS = 10                 # dispatches timed a row count (median)
+MEGA_MIX = (0.45, 0.45, 0.10)  # insert, extract_min, peek_min
+
+
+def _bits_list(xs):
+    """A round's answers as f32 bit patterns, None kept."""
+    return [None if x is None else int(np.float32(x).view(np.int32))
+            for x in xs]
+
+
+def _clone_heap(st):
+    return type(st)(st.a.clone(), st.size.clone())
+
+
+def _heap_bits_equal(torch, x, y):
+    return (torch.equal(x.a.view(torch.int32), y.a.view(torch.int32))
+            and torch.equal(x.size, y.size))
+
+
+def mega_rounds(rng, pq, max_rows):
+    """A seeded round list of at most ``max_rows`` rows: update rounds of
+    1 to 3 x C_MAX ops (fresh keys, repeats of the list's own keys, ties
+    at small keys, -0.0 and subnormals; extracts past a small shard's
+    size), ``peek_min`` rounds of 1 to 3 ops, and empty rounds."""
+    target = int(rng.integers(1, max_rows + 1))
+    rounds, seen = [], [1.0]
+    ties = np.array([0.0, -0.0, 1e-40, -1e-42, 1.0, 2.0], np.float32)
+    for _ in range(4 * max_rows):
+        u = rng.random()
+        if u < 0.6:
+            n = int(rng.integers(1, 3 * C_MAX + 1))
+            ext = rng.random(n) < rng.uniform(0.2, 0.8)
+            keys = []
+            for _ in range(n):
+                v = rng.random()
+                keys.append(float(rng.choice(seen)) if v < 0.25 else
+                            float(rng.choice(ties)) if v < 0.4 else
+                            float(np.floor(rng.uniform(0, KEY_RANGE))))
+            seen.extend(keys)
+            r = ("update", ["extract_min" if e else "insert" for e in ext],
+                 [None if e else k for e, k in zip(ext, keys)])
+        elif u < 0.9:
+            n = int(rng.integers(1, 4))
+            r = ("read", ["peek_min"] * n, [None] * n)
+        else:
+            r = (("update", "read")[int(rng.integers(2))], [], [])
+        if len(pq._mixed_specs(rounds + [r])[0]) > target:
+            break
+        rounds.append(r)
+    return rounds
+
+
+def mega_three_ways(torch, pq, lists, consume_reversed):
+    """Dispatch ``lists`` (one or two round lists, back to back) through
+    the instance (a graph replay on the card), and their padded rows
+    through ``_sharded_mixed_rows`` on two clones of the heap taken before:
+    the eager kernel pass and the plain pass.  Heaps, outs (of a single
+    dispatch) and every handle's answers must be bit-equal."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.core import sharded_pq as spq
+
+    st_e, st_p = _clone_heap(pq.state), _clone_heap(pq.state)
+    dispatched = []
+    for rounds in lists:
+        specs, plans = pq._mixed_specs(rounds)
+        hs = pq.mixed_rounds(rounds)
+        g_outs = None
+        if specs and pq.device.type == "cuda":
+            g_outs = pq._graphs[len(spq.pad_rows(specs, C_MAX))].outs.clone()
+        dispatched.append((specs, plans, hs, g_outs))
+    order = (range(len(lists) - 1, -1, -1) if consume_reversed
+             else range(len(lists)))
+    got = {i: [h.result() for h in (dispatched[i][2][::-1]
+                                     if consume_reversed
+                                     else dispatched[i][2])]
+           for i in order}
+    n_rows = 0
+    for i, (specs, plans, hs, g_outs) in enumerate(dispatched):
+        if consume_reversed:
+            got[i] = got[i][::-1]
+        if not specs:
+            check(all(r == [] or r == [None] * len(r) for r in got[i]),
+                  "megapass: an empty dispatch answered")
+            continue
+        padded = spq.pad_rows(specs, C_MAX)
+        n_rows = max(n_rows, len(padded))
+        rows = torch.from_numpy(bpq.pack_rows(padded, C_MAX)).to(
+            pq.device)
+        outs_e, k_e = spq._sharded_mixed_rows(st_e, rows, **pq._pass_kw)
+        outs_p, k_p = spq._sharded_mixed_rows(
+            st_p, rows, phases=bpq.PLAIN_PHASES, **pq._pass_kw)
+        check(torch.equal(outs_e.view(torch.int32),
+                          outs_p.view(torch.int32))
+              and torch.equal(k_e, k_p), "megapass: eager outs != plain")
+        if g_outs is not None and len(lists) == 1:
+            check(torch.equal(g_outs.view(torch.int32),
+                              outs_e.view(torch.int32)),
+                  "megapass: replay outs != eager outs")
+        for outs in (outs_e, outs_p):
+            want = [h.result() for h in pq._mixed_handles(
+                plans, bpq._RoundsFetch(outs))]
+            check([_bits_list(r) for r in got[i]]
+                  == [_bits_list(r) for r in want],
+                  f"megapass: handles' answers {got[i]} != {want}")
+    check(_heap_bits_equal(torch, pq.state, st_e)
+          and _heap_bits_equal(torch, st_e, st_p),
+          "megapass: heap after the replay != eager != plain")
+    return n_rows
+
+
+def mega_lists(torch, dev, seed, pq, small, n_lists=MEGA_LISTS):
+    """Part a: ``n_lists`` seeded round lists, MEGA_SMALL of them on the
+    near-empty ``small`` heap; every fifth dispatched back to back with
+    the next and both consumed in reverse.  Returns the lists checked, the
+    row counts met and ``memory_reserved`` before and after."""
+    rng = np.random.default_rng([seed, 30])
+    reserved0 = torch.cuda.memory_reserved() if dev.type == "cuda" else 0
+    rows, i, checked = [], 0, 0
+    while i < n_lists:
+        q = small if i < MEGA_SMALL else pq
+        pair = i % 5 == 4 and i + 1 < n_lists and i + 1 != MEGA_SMALL
+        lists = [mega_rounds(rng, q, MEGA_MAX_ROWS if q is pq else 8)
+                 for _ in range(2 if pair else 1)]
+        rows.append(mega_three_ways(torch, q, lists, consume_reversed=pair))
+        checked += len(lists)
+        i += len(lists)
+    reserved1 = torch.cuda.memory_reserved() if dev.type == "cuda" else 0
+    return {"lists": checked, "rows": sorted(set(rows)),
+            "reserved_before": reserved0, "reserved_after": reserved1}
+
+
+def mega_contract(torch, pq, counters, seed):
+    """Part b: one ``mixed_rounds`` of an already-captured row count plus
+    the consumption of all its handles makes exactly one blocking fetch
+    and no other sync (``one_fetch``); ``graph_replays`` rises by one, and
+    each heap kernel's count by the launches its graph captured."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.core import sharded_pq as spq
+
+    rng = np.random.default_rng([seed, 31])
+    rounds = mega_rounds(rng, pq, 8)
+    while not pq._mixed_specs(rounds)[0]:
+        rounds = mega_rounds(rng, pq, 8)
+    [h.result() for h in pq.mixed_rounds(rounds)]      # captured by now
+    n_rows = len(spq.pad_rows(pq._mixed_specs(rounds)[0], C_MAX))
+    captured = {name: n for fn, n in pq._graphs[n_rows].launches
+                for name, f in counters.items() if f is fn}
+    replays0, launches0 = pq.graph_replays, _snap(counters)
+    one_fetch(torch, bpq, lambda: [h.result()
+                                   for h in pq.mixed_rounds(rounds)])
+    delta = _launch_delta(counters, launches0)
+    check(pq.graph_replays == replays0 + 1,
+          f"megapass: {pq.graph_replays - replays0} replays a dispatch")
+    check(all(delta[k] == captured[k] == n_rows for k in HEAP),
+          f"megapass: launches {delta} != captured {captured} "
+          f"({n_rows} rows)")
+    return {"rows": n_rows, "captured": captured}
+
+
+def mega_engine(torch, dev, seed, init, cap, counters, threads, ops,
+                use_megapass):
+    """Part c: ``pc_megapass_priority_queue`` over ``init`` under
+    ``threads`` clients of MEGA_MIX; every dispatch's rounds and answers
+    recorded, then replayed through ``SequentialBatchedPQ``: each answer
+    must pass ``spec.result_ok`` and the final multisets be equal."""
+    from repro_torch.core import substrate
+    from repro_torch.core.pc_pq import pc_megapass_priority_queue
+    from repro_torch.core.sharded_pq import SequentialBatchedPQ
+
+    spec = substrate.get("pq")
+    t0 = time.perf_counter()
+    eng = pc_megapass_priority_queue(cap, C_MAX, n_shards=4, values=init,
+                                     use_megapass=use_megapass, device=dev)
+    setup_s = time.perf_counter() - t0
+    log, real = [], eng._dispatch
+
+    def recording(rounds, futs):
+        real(rounds, futs)
+        log.append((rounds, [[f.result() for f in fs] for fs in futs]))
+
+    eng._dispatch = recording
+
+    def draw(r):
+        u = r.random()
+        if u < MEGA_MIX[0]:
+            return "insert", float(np.floor(r.uniform(0, KEY_RANGE)))
+        return ("extract_min" if u < MEGA_MIX[0] + MEGA_MIX[1]
+                else "peek_min"), None
+
+    name = "megapass" if use_megapass else "megapass alternating"
+    try:
+        (_, seconds), launches = counted(
+            torch, dev, name, counters, HEAP,
+            lambda: drive_mixed(eng, threads, ops, seed, draw))
+    finally:
+        eng.close()
+    t0 = time.perf_counter()
+    oracle = SequentialBatchedPQ(init, c_max=C_MAX)
+    for rounds, answers in log:
+        for (kind, methods, inputs), got in zip(rounds, answers):
+            want = (oracle.update_batch(methods, inputs) if kind == "update"
+                    else oracle.read_batch(methods, inputs))
+            check(all(spec.result_ok(m, g, w)
+                      for m, g, w in zip(methods, got, want)),
+                  f"{name}: answers {got} != the oracle's {want}")
+    check(np.array_equal(np.asarray(eng.ds.values(), np.float32),
+                         np.asarray(oracle.values(), np.float32)),
+          f"{name}: final multiset differs from the oracle's")
+    n = threads * ops
+    return {"ops": n, "seconds": seconds, "ops_per_s": n / seconds,
+            "dispatches": eng.megapass_dispatches,
+            "rounds": eng.megapass_rounds,
+            "rounds_per_dispatch": eng.rounds_per_dispatch,
+            "graph_captures": eng.ds.graph_captures,
+            "graph_replays": eng.ds.graph_replays,
+            "launches": launches, "setup_s": setup_s,
+            "replay_s": time.perf_counter() - t0}
+
+
+def mega_timing(torch, pq, seed):
+    """Part d: at R = MEGA_TIMED_ROWS update rows (8 extracts and 8 fresh
+    inserts each), the capture's one-time ms (warm-up included), then
+    MEGA_REPS dispatches through ``apply_rounds_async`` (one replay each)
+    and as many eager ``_sharded_mixed_rows`` loops on a clone of the
+    heap: host ms (the call, no sync) and device ms (CUDA events around
+    it), medians.  Nothing here is claimed: the numbers go to PERF.md."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.core import sharded_pq as spq
+
+    rng = np.random.default_rng([seed, 32])
+    out = {}
+    for R in MEGA_TIMED_ROWS:
+        def rounds():
+            return [(8, np.floor(rng.uniform(0, KEY_RANGE, 8)).tolist())
+                    for _ in range(R)]
+        pq._graphs.pop(R, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq._graphs[R] = pq._capture(R)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"replay": ([], []), "eager": ([], [])}
+        clone = _clone_heap(pq.state)
+        for rep in range(MEGA_REPS + 1):
+            for kind in ("replay", "eager"):
+                rs = rounds()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t0 = time.perf_counter()
+                if kind == "replay":
+                    hs = pq.apply_rounds_async(rs)
+                else:
+                    specs, _ = bpq.expand_rounds(rs, C_MAX)
+                    rows = torch.from_numpy(bpq.pack_rows(
+                        [(spq.MEGA_UPDATE,) + s for s in specs],
+                        C_MAX)).to(pq.device, non_blocking=True)
+                    spq._sharded_mixed_rows(clone, rows, **pq._pass_kw)
+                host = (time.perf_counter() - t0) * 1e3
+                e1.record()
+                e1.synchronize()
+                if kind == "replay":
+                    hs[0].result()            # re-tightens the mirror
+                if rep:                       # the first is a warm-up
+                    rec[kind][0].append(host)
+                    rec[kind][1].append(e0.elapsed_time(e1))
+        out[R] = {"capture_ms": capture_ms,
+                  **{f"{k}_{w}_ms": float(np.median(v[j]))
+                     for k, v in rec.items()
+                     for j, w in enumerate(("host", "device"))}}
+    return out
+
+
+def c4_checks(torch, dev, seed, pq):
+    """Part e: ``heap_kmin`` captured once and replayed with ne = 1, 5 and
+    16 written into its device scalar, each equal to the plain version;
+    one ``sorted_merge`` captured and replayed twice on new inputs copied
+    into its static inputs, bit-equal to the plain version both times;
+    then the epoch field spent on the card (word 0 of the stream's
+    scratch set to its last epoch but one): the wrap call is right,
+    leaves the word and every status word 0, and the next call is right
+    at epoch 1."""
+    from repro_torch.kernels import heap_kmin
+    from repro_torch.kernels.sorted_merge import ops as merge_ops
+
+    out = {}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    a, size = pq.state.a.clone(), pq.state.size.clone()
+    ne = count(dev, 0)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        heap_kmin.k_smallest_sharded(a, size, ne, c_max=C_MAX)
+        g.capture_begin(capture_error_mode="thread_local")
+        ids, vals = heap_kmin.k_smallest_sharded(a, size, ne, c_max=C_MAX)
+        g.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for n in (1, 5, 16):
+        ne.fill_(n)
+        g.replay()
+        pids, pvals = heap_kmin.k_smallest_plain(a, size, ne, C_MAX)
+        check(torch.equal(ids, pids) and torch.equal(
+            vals.view(torch.int32), pvals.view(torch.int32))
+            and int((ids > 0).sum(1).max()) == n,
+            f"c4: replayed heap_kmin at ne = {n} != plain")
+    out["kmin_ne"] = [1, 5, 16]
+
+    rng = np.random.default_rng([seed, 33])
+    n_map = shard_capacity(MAP_KEYS, 4)
+
+    def inputs():
+        return merge_inputs(torch, dev, rng, 4, n_map, C_MAX, "few", C_MAX,
+                            fill=MAP_KEYS // 4)
+
+    def plain(inp):
+        return merge_ops.merge_compact_plain(*inp)
+
+    static = inputs()
+    g = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        merge_ops.merge_compact_sharded(*static)
+        g.capture_begin(capture_error_mode="thread_local")
+        mk, mv = merge_ops.merge_compact_sharded(*static)
+        g.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for i in range(2):
+        new = inputs()
+        for t, x in zip(static, new):
+            t.copy_(x)
+        g.replay()
+        pk, pv = plain(new)
+        check(torch.equal(mk.view(torch.int32), pk.view(torch.int32))
+              and torch.equal(mv.view(torch.int32), pv.view(torch.int32)),
+              f"c4: replayed sorted_merge #{i} != plain")
+    scratch = merge_ops._scratch[(mk.device.index, side.cuda_stream)]
+    torch.cuda.synchronize()
+    epochs = [int(scratch[0]) >> 32]
+    scratch[0] = (merge_ops.EPOCHS - 2) << 32
+    for i in range(2):
+        inp = inputs()
+        with torch.cuda.stream(side):
+            got = merge_ops.merge_compact_sharded(*inp)
+        torch.cuda.synchronize()
+        pk, pv = plain(inp)
+        check(torch.equal(got[0].view(torch.int32), pk.view(torch.int32))
+              and torch.equal(got[1].view(torch.int32),
+                              pv.view(torch.int32)),
+              f"c4: sorted_merge {'at the wrap' if i == 0 else 'after'} "
+              f"!= plain")
+        epochs.append(int(scratch[0]) >> 32)
+        if i == 0:
+            check(int(scratch[0]) == 0 and int(scratch[1]) == 0
+                  and not bool(scratch[2:].any()),
+                  "c4: the wrap call left its scratch uncleared")
+    check(epochs[1:] == [0, 1], f"c4: epochs after the wrap {epochs}")
+    out["merge_replays"] = 2
+    out["merge_epochs"] = epochs
+    return out
+
+
+def megapass_phase(torch, dev, seed, pq, init, cap, counters, threads,
+                   ops=OPS_PER_THREAD, timing=True, n_lists=MEGA_LISTS,
+                   out=print):
+    """Parts a-e (:func:`mega_lists`, :func:`mega_contract`,
+    :func:`mega_engine` with the megapass on and off, :func:`mega_timing`,
+    :func:`c4_checks`).  ``pq``: the pq-sharded phase's queue, its 4,000,000
+    prefilled keys on K = 4 shards of ``cap`` slots.  The launches are the
+    megapass engine's (part c, megapass on): the main path's count.  Each
+    part's line is printed as the part ends."""
+    from repro_torch.core.sharded_pq import ShardedBatchedPQ
+
+    s, printed = {}, []
+
+    def flush():
+        for line in megapass_lines(s, dev, None):
+            if line not in printed:
+                printed.append(line)
+                out(line)
+    t0 = time.perf_counter()
+    small = ShardedBatchedPQ(1024, C_MAX, n_shards=4, values=np.floor(
+        np.random.default_rng([seed, 34]).uniform(0, 100, 24)), device=dev)
+    s["lists"] = mega_lists(torch, dev, seed, pq, small, n_lists)
+    s["lists"]["graph_captures"] = pq.graph_captures + small.graph_captures
+    s["lists_s"] = time.perf_counter() - t0
+    flush()
+    if dev.type == "cuda":
+        s["contract"] = mega_contract(torch, pq, counters, seed)
+        flush()
+    for on in (True, False):
+        t0 = time.perf_counter()
+        s["engine" if on else "alternating"] = mega_engine(
+            torch, dev, seed, init, cap, counters, threads, ops, on)
+        s[("engine" if on else "alternating") + "_s"] = \
+            time.perf_counter() - t0
+        flush()
+    check(s["engine"]["dispatches"] < s["engine"]["rounds"],
+          "megapass: the engine never fused two rounds")
+    s["launches"] = s["engine"]["launches"]
+    if dev.type == "cuda":
+        if timing:
+            t0 = time.perf_counter()
+            s["timing"] = mega_timing(torch, pq, seed)
+            s["timing_s"] = time.perf_counter() - t0
+            flush()
+        s["c4"] = c4_checks(torch, dev, seed, pq)
+        flush()
+    return s
+
+
+def megapass_lines(s, dev, seconds):
+    li = s["lists"]
+    yield (f"megapass lists: {li['lists']} seeded round lists ("
+           f"{min(MEGA_SMALL, li['lists'])} on a near-empty heap) at {li['rows']} padded "
+           f"rows: replay == eager == plain, bit for bit (heaps, outs, "
+           f"every handle's answers; pairs consumed in reverse); "
+           f"{li['graph_captures']} graph captures, memory_reserved "
+           f"{li['reserved_before']} -> {li['reserved_after']} "
+           f"({s['lists_s']:.1f} s)")
+    if "contract" in s:
+        c = s["contract"]
+        yield (f"megapass contract: a {c['rows']}-row dispatch and its "
+               f"handles made one blocking fetch and no other sync, one "
+               f"graph replay, heap launches {c['captured']} (the "
+               f"captured counts)")
+    for key in ("engine", "alternating"):
+        if key not in s:
+            continue
+        e = s[key]
+        yield (f"megapass {key}: {e['ops_per_s']:.1f} ops/s ({e['ops']} "
+               f"ops in {e['seconds']:.3f} s, 45/45/10 insert/extract_min/"
+               f"peek_min), {e['rounds']} rounds in {e['dispatches']} "
+               f"dispatches (rounds_per_dispatch "
+               f"{e['rounds_per_dispatch']:.3f}), graph captures "
+               f"{e['graph_captures']}, replays {e['graph_replays']}, "
+               f"launches {_nonzero(e['launches'])}; every answer and the "
+               f"final multiset equal to SequentialBatchedPQ's (set-up "
+               f"{e['setup_s']:.1f} s, replay {e['replay_s']:.1f} s; "
+               f"{s[key + '_s']:.1f} s)")
+    for R, t in s.get("timing", {}).items():
+        yield (f"megapass timing R={R}: replay host ms "
+               f"{t['replay_host_ms']:.4f} device ms "
+               f"{t['replay_device_ms']:.4f}; eager host ms "
+               f"{t['eager_host_ms']:.4f} device ms "
+               f"{t['eager_device_ms']:.4f}; capture ms "
+               f"{t['capture_ms']:.3f} (once)")
+    if "c4" in s:
+        c = s["c4"]
+        yield (f"megapass c4: heap_kmin replayed at ne {c['kmin_ne']} == "
+               f"plain; sorted_merge replayed {c['merge_replays']}x on new "
+               f"inputs == plain; epoch wrap on the card right, epochs "
+               f"{c['merge_epochs']}")
+    if seconds is not None:
+        yield f"megapass: {seconds:.1f} s"
 
 
 # ---------------------------------------------------------------------------
@@ -2945,6 +3453,13 @@ def served_once(name, batches, tab, answers, max_batch):
             check(by_id[id(r)] is g, f"{name}: a client got another answer")
 
 
+def _graph_replays(sch):
+    """The scheduler's deadline PQ's graph replays (one a dispatch on the
+    card, 0 on the CPU)."""
+    pq = getattr(sch, "_pq", None)
+    return None if pq is None else pq.graph_replays
+
+
 def _launch_delta(counters, before):
     return {k: f.launches - before[k] for k, f in counters.items()}
 
@@ -2997,6 +3512,7 @@ def decode_serving(torch, dev, cfg, params, seed, counters, *, batch, prompt,
             s.update(passes=sch.passes, eliminated=sch.eliminated,
                      pq_dispatches=sch.pq_dispatches,
                      pq_rounds=sch.pq_rounds,
+                     graph_replays=_graph_replays(sch),
                      ordering_passes=sum(sch.tier_decisions.values()))
         return s, rec, answers
 
@@ -3107,7 +3623,7 @@ def order_check(torch, dev, seed, counters, *, batch,
         gate.set()
         sch.close()
     return {"passes": sizes, "pq_dispatches": sch.pq_dispatches,
-            "pq_rounds": sch.pq_rounds,
+            "pq_rounds": sch.pq_rounds, "graph_replays": _graph_replays(sch),
             "heap_launches": {k: v for k, v in _launch_delta(
                 counters, before).items() if k in HEAP}}
 
@@ -3164,6 +3680,7 @@ def structure_serving(torch, dev, seed, counters, init, *, per, batch,
             "calls": len(rec.batches), "mean_batch": sch.mean_batch,
             "ordering_passes": ordering, "pq_dispatches": sch.pq_dispatches,
             "pq_rounds": sch.pq_rounds, "eliminated": sch.eliminated,
+            "graph_replays": _graph_replays(sch),
             "capacity": kw["capacity"], "setup_s": setup_s,
             "replay_s": time.perf_counter() - t0,
             "heap_launches": {k: launches[k] for k in HEAP},
@@ -3173,10 +3690,11 @@ def structure_serving(torch, dev, seed, counters, init, *, per, batch,
 
 def cli_serving(torch, dev, counters):
     """Part d: ``serve.main`` once for each registered workload at the
-    registry's ``serve_kw`` sizes (--scheduler pc-async), and once on pq
-    with --faults standard; each run must serve every request exactly
-    once (the executor's batches counted by request identity), the faults
-    run must show a combiner takeover.  The injected kill's traceback is
+    registry's ``serve_kw`` sizes (--scheduler pc-async), once on pq with
+    --faults standard, and on pq with --megapass, plain and with --faults
+    standard; each run must serve every request exactly once (the
+    executor's batches counted by request identity), the faults runs must
+    show a combiner takeover.  The injected kill's traceback is
     counted (``threading.excepthook``), not printed."""
     import io
 
@@ -3189,6 +3707,11 @@ def cli_serving(torch, dev, counters):
     runs.append(("pq faults", ["--workload", "pq", "--scheduler",
                                "pc-async", "--faults", "standard",
                                "--requests", str(CLI_FAULT_REQUESTS)]))
+    runs.append(("pq megapass", ["--workload", "pq", "--scheduler",
+                                 "pc-async", "--megapass"]))
+    runs.append(("pq megapass faults", [
+        "--workload", "pq", "--scheduler", "pc-async", "--megapass",
+        "--faults", "standard", "--requests", str(CLI_FAULT_REQUESTS)]))
     real_call = serve.StructureExecutor.__call__
     real_hook, kills = threading.excepthook, []
 
@@ -3206,7 +3729,7 @@ def cli_serving(torch, dev, counters):
             seen.extend(id(r) for r in reqs)
             return real_call(self, reqs)
 
-        run_before = _snap(counters)
+        run_before, kills_before = _snap(counters), len(kills)
         serve.StructureExecutor.__call__ = call
         threading.excepthook = hook
         try:
@@ -3220,7 +3743,8 @@ def cli_serving(torch, dev, counters):
               f"({len(set(seen))} distinct) of {stats['requests']}")
         if "faults" in name:
             check(stats["faults"]["scheduler_takeovers"] >= 1
-                  and stats["faults"]["combiner_kills"] == len(kills) == 1,
+                  and stats["faults"]["combiner_kills"]
+                  == len(kills) - kills_before == 1,
                   f"serve cli: {len(kills)} combiner kills, "
                   f"{stats['faults']} under --faults standard")
         lines.append((name, stats, _nonzero(_launch_delta(counters,
@@ -3287,7 +3811,8 @@ def serve_lines(s, dev, batch, prompt, new):
     def sched(r):
         return (f"passes {r['passes']} in {r['ordering_passes']} ordering "
                 f"passes, eliminated {r['eliminated']}, pq_dispatches "
-                f"{r['pq_dispatches']}, pq_rounds {r['pq_rounds']}, heap "
+                f"{r['pq_dispatches']}, pq_rounds {r['pq_rounds']}, "
+                f"deadline PQ graph replays {r['graph_replays']}, heap "
                 f"launches {r['heap_launches']}")
 
     def pipe(r):
@@ -3310,7 +3835,8 @@ def serve_lines(s, dev, batch, prompt, new):
            f"{pipe(d['pipeline_off'])} ({d['part_s']:.1f} s)")
     yield (f"serve order: {o['passes']} requests chosen by the ordering "
            f"passes, each ascending; pq_dispatches {o['pq_dispatches']}, "
-           f"pq_rounds {o['pq_rounds']}, heap launches "
+           f"pq_rounds {o['pq_rounds']}, deadline PQ graph replays "
+           f"{o['graph_replays']}, heap launches "
            f"{o['heap_launches']}; one ordering pass made one blocking "
            f"fetch" + ("" if dev.type == "cuda" else " (not checked here)")
            + f" ({o['part_s']:.1f} s)")
@@ -3319,7 +3845,8 @@ def serve_lines(s, dev, batch, prompt, new):
            f"{st['calls']} executor calls, mean batch "
            f"{st['mean_batch']:.3f}, {st['ordering_passes']} ordering "
            f"passes, pq_dispatches {st['pq_dispatches']}, pq_rounds "
-           f"{st['pq_rounds']}, heap launches {st['heap_launches']} "
+           f"{st['pq_rounds']}, deadline PQ graph replays "
+           f"{st['graph_replays']}, heap launches {st['heap_launches']} "
            f"({', '.join(f'{k} {v:.2f}' for k, v in st['heap_per_pass'].items())}"
            f" an ordering pass, workload PQ included), ordering fetches "
            f"{st['fetches']} waiting {_ms(st['fetch_ms_mean'])} ms on "
@@ -3867,7 +4394,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         serve_prompt=SERVE_PROMPT, serve_new=SERVE_NEW, gemma_seq=GEMMA_SEQ,
         rwkv_shapes=RWKV_SHAPES, rglru_shapes=RGLRU_SHAPES,
         rwkv_batch=RWKV_BATCH, rwkv_seq=RWKV_SEQ, rg_seq=RG_SEQ,
-        struct_per=STRUCT_PER_SESSION, timing=True, out=print):
+        struct_per=STRUCT_PER_SESSION, n_mega_lists=MEGA_LISTS, timing=True,
+        out=print):
     """Phases 2–18; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
@@ -3923,17 +4451,20 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     rng = np.random.default_rng([seed, 0])
     init = rng.uniform(0, KEY_RANGE, n_keys).astype(np.float32)
     results = {}
+    mega_pq = None
     for name, make, pass_fn in (
             ("pq-single",
              lambda: pc_priority_queue(bpq.BatchedPriorityQueue(
                  cap1, C_MAX, values=init, device=dev)),
-             lambda st, ne, v, ni, **kw: bpq.apply_batch_impl(
-                 st, ne, v, ni, c_max=C_MAX, **kw)),
+             lambda st, ne, buf, ni, **kw: bpq.apply_batch_impl(
+                 st, pq_row(dev, ne, buf, ni), c_max=C_MAX,
+                 n_pull=max(ne - ni, 0), **kw)),
             ("pq-sharded",
              lambda: pc_sharded_priority_queue(cap4, C_MAX, n_shards=4,
                                                values=init, device=dev),
-             lambda st, ne, v, ni, **kw: spq._sharded_apply_batch(
-                 st, ne, v, ni, c_max=C_MAX, n_shards=4, **kw))):
+             lambda st, ne, buf, ni, **kw: spq._sharded_apply_batch(
+                 st, pq_row(dev, ne, buf, ni), c_max=C_MAX, n_shards=4,
+                 n_pull=ne, **kw))):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3943,6 +4474,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         if dev.type == "cuda":
             s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         results[name] = s
+        if name == "pq-sharded":
+            mega_pq = engine.pq
         out(f"{name}: {s['ops_per_s']:.1f} ops/s ({s['ops']} ops in "
             f"{s['seconds']:.3f} s, {threads} threads), passes "
             f"{s['passes']}, mean batch {s['mean_batch']:.3f}, eliminated "
@@ -3952,6 +4485,14 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"property and {s['replayed']}-batch kernel==plain replay ok "
             f"({time.perf_counter() - t0:.1f} s)")
         del engine
+
+    t0 = time.perf_counter()
+    s = megapass_phase(torch, dev, seed, mega_pq, init, cap4, counters,
+                       threads, ops=ops, timing=timing,
+                       n_lists=n_mega_lists, out=out)
+    del mega_pq
+    results["megapass"] = s
+    out(f"megapass: {time.perf_counter() - t0:.1f} s")
 
     for name, phase, n_rep in (("graph", graph_phase, graph_replay),
                                ("unionfind", uf_phase, uf_replay)):
@@ -4148,9 +4689,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
        prepare=slow_decay, **serving)
     out(f"run: phases 2-18 in {time.perf_counter() - t_run:.1f} s")
 
-    paths = {"heap_kmin": ("pq-single", "pq-sharded", "serve"),
-             "heap_sift": ("pq-single", "pq-sharded", "serve"),
-             "heap_insert": ("pq-single", "pq-sharded", "serve"),
+    paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve"),
+             "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve"),
+             "heap_insert": ("pq-single", "pq-sharded", "megapass",
+                             "serve"),
              "label_prop": ("graph", "unionfind", "serve"),
              "sorted_merge": ("map", "sketch", "serve"),
              "flash_attention": ("model", "gemma2", "recurrentgemma"),
@@ -4280,6 +4822,26 @@ def serve_only(torch, seed):
     serve_phase(torch, dev, seed, counters, cfg, params, init)
 
 
+def megapass_only(torch, seed):
+    """``--megapass``: phase 2 and the megapass phase alone, on a fresh
+    K = 4 queue of the pq phases' 4,000,000 seeded keys."""
+    from repro_torch.core.sharded_pq import ShardedBatchedPQ
+    from repro_torch.kernels import heap_insert, heap_kmin, heap_sift
+
+    build_line()
+    dev = torch.device("cuda")
+    _, cap4 = pq_capacities(N_KEYS, THREADS, OPS_PER_THREAD, REPLAY_BATCHES)
+    init = np.random.default_rng([seed, 0]).uniform(
+        0, KEY_RANGE, N_KEYS).astype(np.float32)
+    counters = {"heap_kmin": heap_kmin.k_smallest_sharded,
+                "heap_sift": heap_sift.sift_wavefront_sharded,
+                "heap_insert": heap_insert.phase4_sharded}
+    t0 = time.perf_counter()
+    pq = ShardedBatchedPQ(cap4, C_MAX, n_shards=4, values=init, device=dev)
+    megapass_phase(torch, dev, seed, pq, init, cap4, counters, THREADS)
+    print(f"megapass: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4298,6 +4860,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="only the build and the serving phase, on fresh "
                          "random weights (phases 2 and 14)")
+    ap.add_argument("--megapass", action="store_true",
+                    help="only the build and the megapass phase (phase 2 "
+                         "and the phase after 5)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -4342,6 +4907,9 @@ def main(argv=None) -> int:
         return 0
     if args.serve:
         serve_only(torch, args.seed)
+        return 0
+    if args.megapass:
+        megapass_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,11 @@ its jitted pass; here the pass updates ``state.a`` and ``state.size`` in
 place (``donate=False`` is the clone-per-pass twin).  The host slicing
 loop keeps every per-slice result on the device — ONE blocking
 device→host transfer per ``apply()`` call, through :func:`_host_fetch`.
+
+Packed rows: a pass reads its extract and insert counts on the device, from
+one int32 row that also carries the insert values (:func:`pack_rows`), so
+one host→device copy feeds a pass (or a dispatch of R passes) and no kernel
+takes a count from the host.
 """
 from __future__ import annotations
 
@@ -164,8 +169,9 @@ def _refill(a, size, out_ids, insert_vals, k_eff, L, c_max, n_pull):
     """a: (K, cap), updated in place; size/k_eff/L: (K,); out_ids and
     insert_vals: (K, c_max).  ``n_pull``: a host-side upper bound on any
     shard's tail pulls ``k_eff - L`` (the loop runs that many steps; the
-    reference scans all c_max lanes, the extra ones being no-ops).
-    Returns (a, new size)."""
+    reference scans all c_max lanes, the extra ones being no-ops).  A
+    pass whose counts live on the device passes c_max.  Returns (a, new
+    size)."""
     lane = torch.arange(c_max, device=a.device, dtype=torch.int32)
     Lc, kc = L[:, None], k_eff[:, None]
 
@@ -177,16 +183,47 @@ def _refill(a, size, out_ids, insert_vals, k_eff, L, c_max, n_pull):
     # extracted node (tail position == current size >= any remaining id).
     tail_ids = torch.where((lane >= Lc) & (lane < kc), out_ids, -1)
     tail_sorted = torch.sort(tail_ids, dim=1, descending=True).values
-    size = size.clone()
-    for t in range(min(n_pull, c_max)):
-        v = tail_sorted[:, t:t + 1]
-        active = v > 0
-        sz = size[:, None]
-        last = _gather(a, sz, active)
-        _put(a, torch.where(active & (v < sz), v, 0), last)
-        _put(a, torch.where(active, sz, 0), torch.full_like(last, INF))
-        size -= active[:, 0].to(size.dtype)
-    return a, size
+    n = min(n_pull, c_max)
+    v = tail_sorted[:, :n]
+    active = v > 0          # a prefix: the ids (>= 1) sort ahead of the -1s
+    # so step t's tail position is size - t, known before the loop: each
+    # step is one gather and two scatters.  Masked steps aim at the
+    # scratch slot 0, which no active step reads; it is reset after.
+    sz = size[:, None] - torch.arange(n, device=a.device, dtype=size.dtype)
+    src = sz.clamp(0, a.shape[-1] - 1).long()
+    dst = torch.where(active & (v < sz), v, 0).long()
+    tail = torch.where(active, sz, 0).long()
+    for t in range(n):
+        a.scatter_(1, dst[:, t:t + 1], a.gather(1, src[:, t:t + 1]))
+        a.scatter_(1, tail[:, t:t + 1], INF)
+    a[..., 0] = INF
+    return a, size - active.sum(dim=1, dtype=size.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Packed rows: one int32 vector a pass — tag, counts, the insert values' bits
+# ---------------------------------------------------------------------------
+ROW_TAG, ROW_NE, ROW_NI, ROW_VALS = 0, 1, 2, 3
+
+
+def pack_rows(rows, c_max: int) -> np.ndarray:
+    """``[(tag, ne, buf (c_max,) float32, ni)]`` as one (R, 3 + c_max) int32
+    array: the tag, the extract and insert counts, then the f32 bits of the
+    insert values.  One host→device copy carries a whole dispatch."""
+    out = np.empty((len(rows), ROW_VALS + c_max), np.int32)
+    for r, (tag, ne, buf, ni) in enumerate(rows):
+        out[r, :ROW_VALS] = (tag, ne, ni)
+        out[r, ROW_VALS:] = np.asarray(buf, np.float32).view(np.int32)
+    return out
+
+
+def row_fields(row: torch.Tensor, c_max: int):
+    """``(tag, ne, ni, insert values)`` of one packed device row: () int32
+    tensors with the counts clamped to c_max, and a (c_max,) float32 view
+    of the values; nothing is read on the host."""
+    ne = torch.clamp(row[ROW_NE], max=c_max)
+    ni = torch.clamp(row[ROW_NI], max=c_max)
+    return row[ROW_TAG], ne, ni, row[ROW_VALS:].view(torch.float32)
 
 
 def _phases12(a, size, n_extract, insert_vals, n_insert, *, c_max: int,
@@ -245,56 +282,52 @@ PLAIN_PHASES = Phases(k_smallest_plain, sift_wavefront_plain, phase4_plain)
 # ---------------------------------------------------------------------------
 # The full batch application (paper §4, COMBINER_CODE + CLIENT_CODE fused)
 # ---------------------------------------------------------------------------
-def apply_batch_impl(state: HeapState, n_extract: int,
-                     insert_vals: torch.Tensor, n_insert: int,
-                     *, c_max: int, phases: Phases = KERNEL_PHASES,
+def apply_batch_impl(state: HeapState, row: torch.Tensor, *, c_max: int,
+                     n_pull: Optional[int] = None,
+                     phases: Phases = KERNEL_PHASES,
                      ) -> Tuple[HeapState, torch.Tensor, torch.Tensor]:
     """One combined batch on the heap, in place (phases 1–4).
 
-    ``n_extract``/``n_insert``: host ints (≤ c_max are used);
-    ``insert_vals``: (c_max,) float32 on the heap's device.  Returns
-    ``(state, extracted (c_max,) ascending +inf-padded, k_eff ())`` where
-    ``k_eff = min(n_extract, size)``.  Launches each kernel once on a CUDA
-    heap and never synchronises.
+    ``row``: one packed (3 + c_max,) int32 row on the heap's device
+    (:func:`pack_rows`; its tag is not read): the extract and insert
+    counts (≤ c_max are used) and the insert values.  ``n_pull``: a host
+    bound on the tail pulls, ``max(ne - ni, 0)`` when the caller knows the
+    counts (None: c_max).  Returns ``(state, extracted (c_max,) ascending
+    +inf-padded, k_eff ())`` where ``k_eff = min(n_extract, size)``.
+    Launches each kernel once on a CUDA heap and never synchronises.
 
     ``phases`` is the yardstick seam: no entry point passes it, and only
     ``chip_smoke.py`` swaps in :data:`PLAIN_PHASES` (or checked phases) to
     hold the kernel pass against the plain pass on the card.
     """
-    dev = state.a.device
-    ne = min(int(n_extract), c_max)
-    ni = min(int(n_insert), c_max)
+    _tag, ne, ni, insert_vals = row_fields(row, c_max)
     a, size = state.a[None], state.size.reshape(1)
     phase1 = phases.kmin(a, size, ne, c_max=c_max)
-    ne_t = torch.full((1,), ne, dtype=torch.int32, device=dev)
-    ni_t = torch.full((1,), ni, dtype=torch.int32, device=dev)
     a, size2, out_vals, k_eff, starts, active, rem, m_left = _phases12(
-        a, size, ne_t, insert_vals[None], ni_t, c_max=c_max, phase1=phase1,
-        n_pull=max(ne - ni, 0))
+        a, size, ne.reshape(1), insert_vals[None], ni.reshape(1),
+        c_max=c_max, phase1=phase1,
+        n_pull=c_max if n_pull is None else n_pull)
     phases.sift(a, size2, starts, active)
     _, new_size = phases.phase4(a, size2, rem, m_left)
     state.size.copy_(new_size[0])
     return state, out_vals[0], k_eff[0]
 
 
-def apply_batch(state: HeapState, n_extract: int, insert_vals: torch.Tensor,
-                n_insert: int, *, c_max: int
+def apply_batch(state: HeapState, row: torch.Tensor, *, c_max: int,
+                n_pull: Optional[int] = None
                 ) -> Tuple[HeapState, torch.Tensor, torch.Tensor]:
-    """Apply a combined batch, updating ``state`` in place (the port's
-    counterpart of the reference's donated jit)."""
-    return apply_batch_impl(state, n_extract, insert_vals, n_insert,
-                            c_max=c_max)
+    """Apply a combined batch (one packed row), updating ``state`` in
+    place (the port's counterpart of the reference's donated jit)."""
+    return apply_batch_impl(state, row, c_max=c_max, n_pull=n_pull)
 
 
-def apply_batch_undonated(state: HeapState, n_extract: int,
-                          insert_vals: torch.Tensor, n_insert: int,
-                          *, c_max: int
+def apply_batch_undonated(state: HeapState, row: torch.Tensor, *,
+                          c_max: int, n_pull: Optional[int] = None
                           ) -> Tuple[HeapState, torch.Tensor, torch.Tensor]:
     """Ablation twin (EXPERIMENTS §Ablations): the same pass on a clone —
     the heap buffers are copied every pass, ``state`` stays untouched."""
     clone = HeapState(state.a.clone(), state.size.clone())
-    return apply_batch_impl(clone, n_extract, insert_vals, n_insert,
-                            c_max=c_max)
+    return apply_batch_impl(clone, row, c_max=c_max, n_pull=n_pull)
 
 
 # ---------------------------------------------------------------------------
@@ -305,17 +338,19 @@ def apply_rounds(state: HeapState, specs, *, c_max: int, donate: bool = True,
     """R sequential combined batches, one pass each, no host sync between.
 
     ``specs``: ``[(ne, buf (c_max,) float32 numpy, ni)]`` as
-    :func:`expand_rounds` makes them.  Returns ``(state, outs (R, c_max),
-    k_effs (R,))``.  (The reference runs the rounds as one ``lax.scan``
-    program; here they are a loop of passes on one stream.)"""
+    :func:`expand_rounds` makes them, packed into rows and copied to the
+    device at once.  Returns ``(state, outs (R, c_max), k_effs (R,))``.
+    (The reference runs the rounds as one ``lax.scan`` program; here they
+    are a loop of passes on one stream.)"""
     if not donate:
         state = HeapState(state.a.clone(), state.size.clone())
-    outs, k_effs = [], []
-    for ne, buf, ni in specs:
-        vals = torch.from_numpy(np.asarray(buf, np.float32)).to(
+    rows = torch.from_numpy(pack_rows(
+        [(0, ne, buf, ni) for ne, buf, ni in specs], c_max)).to(
             state.a.device, non_blocking=True)
-        state, out, k_eff = apply_batch_impl(state, ne, vals, ni,
-                                             c_max=c_max)
+    outs, k_effs = [], []
+    for r, (ne, _buf, ni) in enumerate(specs):
+        state, out, k_eff = apply_batch_impl(state, rows[r], c_max=c_max,
+                                             n_pull=max(ne - ni, 0))
         outs.append(out)
         k_effs.append(k_eff)
     return state, torch.stack(outs), torch.stack(k_effs)
@@ -498,7 +533,8 @@ def expand_rounds(rounds, c_max: int):
     ``(specs, layout)``: ``specs`` is the flat row list ``[(ne, buf,
     ni)]``; ``layout[r]`` is ``(slice_ne, row_ids)``, which reassembles
     round ``r``'s answer.  (The reference pads the row count to a power
-    of two to bound its jit cache; a loop of passes needs no padding.)"""
+    of two here to bound its jit cache; the sharded queue pads the rows of
+    a whole dispatch instead, to bound its captured CUDA graphs.)"""
     specs: List[Tuple[int, np.ndarray, int]] = []
     layout: List[Tuple[List[int], List[int]]] = []
     for extracts, inserts in rounds:
@@ -569,8 +605,9 @@ class BatchedPriorityQueue:
 
     def _step(self, ne, buf, ni):
         fn = apply_batch if self.donate else apply_batch_undonated
-        self.state, vals, k_eff = fn(self.state, ne, self._to_device(buf),
-                                     ni, c_max=self.c_max)
+        row = self._to_device(pack_rows([(0, ne, buf, ni)], self.c_max)[0])
+        self.state, vals, k_eff = fn(self.state, row, c_max=self.c_max,
+                                     n_pull=max(ne - ni, 0))
         return vals, k_eff
 
     def apply_async(self, extracts: int, inserts) -> AsyncBatchResult:

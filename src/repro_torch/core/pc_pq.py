@@ -532,10 +532,10 @@ def pc_megapass_priority_queue(capacity: int, c_max: int,
     :class:`~repro_torch.core.read_opt.MegapassCombiner` command queue over
     the K-sharded heap — insert/extract_min update rounds interleaved with
     peek_min read rounds, up to ``rounds_cap`` rounds per
-    ``mixed_rounds`` dispatch.  The port's ``ShardedBatchedPQ`` has no
-    fused megapass yet (``supports_megapass = False``: one pass per round,
-    the base fallback), so ``use_megapass`` changes only the dispatch
-    counters.  ``device=None`` means the card."""
+    ``mixed_rounds`` dispatch: the rounds lower onto packed device rows,
+    one CUDA-graph replay a dispatch on the card.  ``use_megapass=False``
+    is the alternating twin (one dispatch a round).  ``device=None``
+    means the card."""
     from .read_opt import MegapassCombiner
 
     return MegapassCombiner(

@@ -171,35 +171,49 @@ def _route_host(vals, n_shards: int,
 
 
 # ---------------------------------------------------------------------------
-# One combined batch over all K shards
+# One packed row over all K shards: a combined batch or a peek
 # ---------------------------------------------------------------------------
+MEGA_UPDATE, MEGA_READ = 0, 1
+
+
 def _sharded_apply_batch(
-    state: ShardedHeapState, n_extract: int,
-    insert_vals: torch.Tensor, n_insert: int,
+    state: ShardedHeapState, row: torch.Tensor,
     *, c_max: int, n_shards: int,
     key_range: Optional[Tuple[float, float]] = None,
-    phases: Phases = KERNEL_PHASES,
+    phases: Phases = KERNEL_PHASES, n_pull: Optional[int] = None,
 ) -> Tuple[ShardedHeapState, torch.Tensor, torch.Tensor]:
-    """Apply one combined batch of ≤ c_max extracts + ≤ c_max inserts,
-    updating ``state`` in place.
+    """Apply one packed row (:func:`batched_pq.pack_rows`), updating
+    ``state`` in place.
 
-    ``n_extract``/``n_insert`` are host ints; ``insert_vals`` is (c_max,)
-    float32 on the heap's device.  Returns (state, extracted (c_max,)
-    ascending +inf-padded, k_eff) where k_eff = min(n_extract, Σ size_k).
-    One launch of each kernel on a CUDA heap, no host sync.
+    ``row``: (3 + c_max,) int32 on the heap's device: a tag, the extract
+    and insert counts (≤ c_max are used) and the insert values, all read
+    on the device.  A ``MEGA_UPDATE`` row is one combined batch of ≤ c_max
+    extracts + ≤ c_max inserts; a ``MEGA_READ`` row is ``peek_min``'s
+    frontier merge (:func:`_peek_min_impl`, its extract count the peek
+    width): its per-shard extract and insert counts are multiplied by
+    ``tag == MEGA_UPDATE`` on the device, so the phases leave ``a`` and
+    ``size`` bit-identical, and its answer is the frontier instead of the
+    extracted keys — the port's form of the reference's ``lax.cond``.
+    Returns (state, answer (c_max,) ascending +inf-padded, k_eff) where
+    k_eff = min(ne, Σ size_k).  One launch of each kernel on a CUDA heap;
+    nothing is read on the host, so a CUDA graph can capture the pass.
 
-    ``phases`` is the yardstick seam: no entry point passes it, and only
-    ``chip_smoke.py`` swaps in :data:`batched_pq.PLAIN_PHASES` (or checked
-    phases) to hold the kernel pass against the plain pass on the card.
+    ``n_pull``: a host bound on the tail pulls; the eager single pass
+    knows its extract count and passes it, every pass whose counts stay
+    on the device runs the static c_max (None), whose extra steps are
+    masked no-ops.  ``phases`` is the yardstick seam: no entry point
+    passes it, and only ``chip_smoke.py`` swaps in
+    :data:`batched_pq.PLAIN_PHASES` (or checked phases) to hold the
+    kernel pass against the plain pass on the card.
     """
     K = n_shards
     a, size = state
     dev = a.device
     lane = torch.arange(c_max, device=dev, dtype=torch.int32)
-    ne = min(int(n_extract), c_max)
-    ni = min(int(n_insert), c_max)
-    insert_vals = _flush_subnormals(insert_vals.to(torch.float32))
-    ins_valid = lane < ni
+    tag, ne, ni, insert_vals = _bpq.row_fields(row, c_max)
+    update = tag == MEGA_UPDATE
+    insert_vals = _flush_subnormals(insert_vals)
+    ins_valid = (lane < ni) & update
 
     # -- 1. route inserts to shards (invalid lanes park on shard 0 masked out)
     shard_of = torch.where(ins_valid, _route(insert_vals, K, key_range), 0)
@@ -212,10 +226,11 @@ def _sharded_apply_batch(
     # -- 2. per-shard frontier candidates (read-only) + global merge
     cand_ids, cand_vals = phases.kmin(a, size, ne, c_max=c_max)
     flat_vals = cand_vals.reshape(-1)                    # (K*c_max,)
-    flat_shard = shard_ids.repeat_interleave(c_max).long()
+    flat_shard = shard_ids[:, None].expand(K, c_max).reshape(-1).long()
     order = torch.argsort(flat_vals, stable=True)
-    chosen = (torch.arange(K * c_max, device=dev) < ne) & torch.isfinite(
-        flat_vals[order])
+    flat_sorted = flat_vals[order]
+    chosen = ((torch.arange(K * c_max, device=dev) < ne)
+              & torch.isfinite(flat_sorted) & update)
     # segment sum by scatter_add_ (bincount would sync on CUDA)
     e_counts = torch.zeros(K, dtype=torch.int32, device=dev).scatter_add_(
         0, flat_shard[order], chosen.to(torch.int32))
@@ -226,64 +241,90 @@ def _sharded_apply_batch(
     take_k = lane < e_counts[:, None]
     phase1 = (torch.where(take_k, cand_ids, 0),
               torch.where(take_k, cand_vals, INF))
-    k_eff = torch.clamp(size.sum(), max=ne).to(torch.int32)
+    k_eff = torch.minimum(size.sum(), ne.to(torch.int64)).to(torch.int32)
     a2, size2, out_rows, _k_eff_k, starts, active, rem, m_left = _phases12(
         a, size, e_counts, ins_rows, ins_counts, c_max=c_max, phase1=phase1,
-        n_pull=ne)
+        n_pull=c_max if n_pull is None else n_pull)
 
     # -- 3b. sift wavefront + collective inserts on every shard
     phases.sift(a2, size2, starts, active)
     _, new_size = phases.phase4(a2, size2, rem, m_left)
     size.copy_(new_size)
 
-    # -- 4. merge the per-shard answers (ascending, +inf padded)
+    # -- 4. merge the per-shard answers (ascending, +inf padded); a read
+    # row answers the frontier's ne smallest keys
     merged = torch.sort(out_rows.reshape(-1)).values[:c_max]
-    return state, merged, k_eff
+    frontier = torch.where(lane < ne, flat_sorted[:c_max], INF)
+    return state, torch.where(update, merged, frontier), k_eff
 
 
-def sharded_apply_batch(state, n_extract, insert_vals, n_insert, **kw):
+def sharded_apply_batch(state, row, **kw):
     """In-place pass (the reference's donated jit)."""
-    return _sharded_apply_batch(state, n_extract, insert_vals, n_insert, **kw)
+    return _sharded_apply_batch(state, row, **kw)
 
 
-def sharded_apply_batch_undonated(state, n_extract, insert_vals, n_insert,
-                                  **kw):
+def sharded_apply_batch_undonated(state, row, **kw):
     """Ablation twin (EXPERIMENTS §Ablations): the pass on a clone."""
     clone = ShardedHeapState(state.a.clone(), state.size.clone())
-    return _sharded_apply_batch(clone, n_extract, insert_vals, n_insert, **kw)
+    return _sharded_apply_batch(clone, row, **kw)
 
 
-def sharded_apply_rounds(state: ShardedHeapState, specs, *, donate=True,
-                         **kw):
-    """R sequential K-shard passes back to back, no host sync between
-    (DESIGN.md §12).  ``specs``: :func:`expand_rounds` rows.  Returns
-    ``(state, outs (R, c_max), k_effs (R,))``."""
-    if not donate:
-        state = ShardedHeapState(state.a.clone(), state.size.clone())
+def _sharded_mixed_rows(
+    state: ShardedHeapState, rows: torch.Tensor, *, c_max: int,
+    n_shards: int, key_range: Optional[Tuple[float, float]] = None,
+    phases: Phases = KERNEL_PHASES,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """R packed rows (R, 3 + c_max) int32 on the heap's device, tagged
+    ``MEGA_UPDATE`` / ``MEGA_READ``, run in order and in place: the
+    megapass (DESIGN.md §17; the reference's ``_sharded_mixed_impl``).
+    Returns ``(outs (R, c_max), k_effs (R,))``.  Nothing here reads a
+    tensor on the host (no ``int()``, ``.item()``, ``nonzero`` or
+    data-dependent shape), so ``ShardedBatchedPQ`` captures it as one
+    CUDA graph per R; run eagerly it is the graph's yardstick, and the
+    CPU's pass."""
     outs, k_effs = [], []
-    for ne, buf, ni in specs:
-        vals = torch.from_numpy(np.asarray(buf, np.float32)).to(
-            state.a.device, non_blocking=True)
-        state, out, k_eff = _sharded_apply_batch(state, ne, vals, ni, **kw)
+    for r in range(rows.shape[0]):
+        _, out, k_eff = _sharded_apply_batch(
+            state, rows[r], c_max=c_max, n_shards=n_shards,
+            key_range=key_range, phases=phases)
         outs.append(out)
         k_effs.append(k_eff)
-    return state, torch.stack(outs), torch.stack(k_effs)
+    return torch.stack(outs), torch.stack(k_effs)
 
 
-def _peek_min_impl(state: ShardedHeapState, n_extract: int, *, c_max: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _peek_min_impl(state: ShardedHeapState, n_extract: torch.Tensor, *,
+                   c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Read-only twin of :func:`_sharded_apply_batch` steps 1–2: the
     per-shard frontier candidates and the global merge, without the
-    extraction phases.  Returns ``(merged (c_max,) ascending +inf-padded,
-    k_eff)``: the ``n_extract`` globally smallest keys."""
+    extraction phases.  ``n_extract``: () int32 on the heap's device.
+    Returns ``(merged (c_max,) ascending +inf-padded, k_eff)``: the
+    ``n_extract`` globally smallest keys."""
     a, size = state
-    ne = min(int(n_extract), c_max)
+    ne = torch.clamp(n_extract, max=c_max)
     _ids, cand_vals = k_smallest_sharded(a, size, ne, c_max=c_max)
     flat = torch.sort(cand_vals.reshape(-1)).values[:c_max]
     lane = torch.arange(c_max, device=a.device)
     merged = torch.where(lane < ne, flat, INF)
-    k_eff = torch.clamp(size.sum(), max=ne).to(torch.int32)
+    k_eff = torch.minimum(size.sum(), ne.to(torch.int64)).to(torch.int32)
     return merged, k_eff
+
+
+def pad_rows(specs, c_max: int) -> list:
+    """``specs`` padded to the next power of two with no-op read rows (ne
+    = 0: pure, so padding never perturbs the serial schedule) — what
+    bounds the captured graphs at one a power of two."""
+    pad = np.full((c_max,), np.inf, np.float32)
+    n_rows = 1 << (len(specs) - 1).bit_length()
+    return list(specs) + [(MEGA_READ, 0, pad, 0)] * (n_rows - len(specs))
+
+
+class _RowsGraph(NamedTuple):
+    """One captured replay of :func:`_sharded_mixed_rows` at R rows."""
+
+    graph: Any                   # torch.cuda.CUDAGraph
+    rows: torch.Tensor           # its static (R, 3 + c_max) int32 input
+    outs: torch.Tensor           # its (R, c_max) output, cloned each replay
+    launches: Tuple[Tuple[Any, int], ...]   # (kernel wrapper, launches)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +352,25 @@ class _PQBatchHandle:
             else:
                 out.append(None)
         return out
+
+
+class _PQPeekRound:
+    """Handle for one ``peek_min`` read round of a megapass: every op in
+    the round observes the same linearization point, so each answers THE
+    global minimum at that point (None when empty).  Resolution shares
+    the dispatch's one :class:`_RoundsFetch` transfer."""
+
+    def __init__(self, shared: Optional[_RoundsFetch], row_id: int,
+                 n_ops: int):
+        self._shared = shared
+        self._row = row_id
+        self._n = n_ops
+
+    def result(self) -> List[Any]:
+        if not self._n:
+            return []
+        v = float(self._shared.rows()[self._row][0])
+        return [v if np.isfinite(v) else None] * self._n
 
 
 class ShardedBatchedPQ(substrate.BatchedStructure):
@@ -342,11 +402,27 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
     ``e_k ≥ min(ne, total) - Σ_{j≠k} size_j``.  The bounds re-tighten to
     the true sizes at every consumed ``result()``.  The wrapper is not
     thread-safe; confine each instance to one thread (the combiner).
+
+    Rounds dispatches (:meth:`apply_rounds_async`, :meth:`mixed_rounds`)
+    lower onto packed device rows (:func:`_sharded_mixed_rows`), padded to
+    the next power of two with no-op read rows.  On a donated CUDA heap
+    such a dispatch is ONE replay of a CUDA graph captured at the first
+    dispatch of its row count (the pow2 padding bounds the captured graphs
+    at one per power of two, as it bounds the reference's jit cache): the
+    rows go to the device in one copy, into the graph's static input, and
+    the answers are cloned out of its static output after the replay, so a
+    later replay cannot overwrite an unconsumed handle.  The graph binds
+    the live ``a`` and ``size``: a restore copies into them, and rebinding
+    :attr:`state` to other tensors drops the cache.  ``donate=False``
+    clones the heap every dispatch and stays eager, as the reference's
+    undonated twin is a separate jit.  ``graph_captures`` and
+    ``graph_replays`` count the graphs; each replay adds the kernel
+    launches its graph captured to the wrappers' ``launches`` counters.
     """
 
     structure = "pq"
     read_only: Set[str] = {"values", "peek_min"}
-    supports_megapass = False
+    supports_megapass = True
     supports_placement = False
 
     def __init__(self, capacity: int, c_max: int, n_shards: int = 4,
@@ -369,7 +445,22 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             if key_range is not None else None)
         self.fault_plan = fault_plan
         self._guard = make_guard(fault_plan, guard)
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._graphs = {}
         self.state = self._init_state(values)
+
+    @property
+    def state(self) -> ShardedHeapState:
+        return self._state
+
+    @state.setter
+    def state(self, st: ShardedHeapState) -> None:
+        # the captured graphs bind the live buffers: other tensors, no graphs
+        old = self.__dict__.get("_state")
+        if old is None or st.a is not old.a or st.size is not old.size:
+            self._graphs = {}
+        self._state = st
 
     def _init_state(self, values) -> ShardedHeapState:
         K, cap = self.n_shards, self.capacity
@@ -438,7 +529,11 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         return st, self._sizes_ub.copy(), self._total
 
     def _restore(self, snap) -> None:
-        self.state, self._sizes_ub, self._total = snap
+        """Write the snapshot into the live buffers (bit-identical), so
+        the captured graphs, which bind them, stay valid."""
+        st, self._sizes_ub, self._total = snap
+        self.state.a.copy_(st.a)
+        self.state.size.copy_(st.size)
 
     def _fetch_sizes(self):
         # a copy taken at consumption time: later passes mutate size in place
@@ -451,9 +546,10 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             self._guard_and_account(ne, buf, ni)
             fn = sharded_apply_batch if self.donate \
                 else sharded_apply_batch_undonated
-            vals_dev = torch.from_numpy(buf).to(self.device,
-                                                non_blocking=True)
-            self.state, vals, k_eff = fn(self.state, ne, vals_dev, ni,
+            row = torch.from_numpy(_bpq.pack_rows(
+                [(MEGA_UPDATE, ne, buf, ni)], self.c_max)[0]).to(
+                    self.device, non_blocking=True)
+            self.state, vals, k_eff = fn(self.state, row, n_pull=ne,
                                          **self._pass_kw)
             return vals, k_eff
 
@@ -488,29 +584,86 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         """Apply a combined batch; returns extracted values (None-padded)."""
         return self.apply_async(extracts, inserts).result()
 
-    def apply_rounds_async(self, rounds) -> list:
-        """Apply R sequential combined batches back to back (DESIGN.md
-        §12): the rounds are lowered onto ≤ c_max rows, the sync-free
-        occupancy guard runs per row on the host (in row order), and the
-        passes run with no host sync between them.  Returns one
-        ``RoundResult`` per round; every round shares one blocking fetch,
-        which also re-tightens the occupancy mirror."""
-        specs, layout = expand_rounds(rounds, self.c_max)
-        if not specs:
-            return [RoundResult(sn, ri, None) for sn, ri in layout]
+    # -- rounds dispatches: packed rows, one graph replay on the card -------
+    def _capture(self, n_rows: int) -> _RowsGraph:
+        """Capture :func:`_sharded_mixed_rows` over the live heap at
+        ``n_rows`` rows.  The kernels and the library load in a warm-up
+        on a clone of the heap (a warm-up runs for real, a capture does
+        not); the capture runs on a side stream (a non-blocking one, which
+        work on the legacy default stream does not join) in thread-local
+        mode, so another thread's work on the card goes on meanwhile.
+        Nothing here synchronises: no blocking copy, and the capture is
+        begun directly rather than through ``torch.cuda.graph``, whose
+        entry synchronises the device."""
+        dev = self.device
+        pad = np.full((self.c_max,), np.inf, np.float32)
+        rows = torch.from_numpy(_bpq.pack_rows(
+            [(MEGA_READ, 0, pad, 0)] * n_rows, self.c_max)).to(
+                dev, non_blocking=True)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            warm = ShardedHeapState(self.state.a.clone(),
+                                    self.state.size.clone())
+            _sharded_mixed_rows(warm, rows, **self._pass_kw)
+            del warm
+            before = [fn.launches for fn in KERNEL_PHASES]
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outs, _k = _sharded_mixed_rows(self.state, rows,
+                                               **self._pass_kw)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        launches = []
+        for fn, b in zip(KERNEL_PHASES, before):
+            n = fn.launches - b
+            fn.launches -= n            # a capture launches nothing
+            launches.append((fn, n))
+        self.graph_captures += 1
+        return _RowsGraph(graph, rows, outs, tuple(launches))
+
+    def _run_rows(self, specs) -> torch.Tensor:
+        """Run the rows ``[(tag, ne, buf, ni)]`` in order (one copy to the
+        device): one graph replay on a donated CUDA heap, else the eager
+        loop (on a clone when undonated).  Returns the (R, c_max)
+        answers."""
+        rows = torch.from_numpy(_bpq.pack_rows(specs, self.c_max)).to(
+            self.device, non_blocking=True)
+        if self.donate and self.device.type == "cuda":
+            g = self._graphs.get(len(specs))
+            if g is None:
+                g = self._graphs[len(specs)] = self._capture(len(specs))
+            g.rows.copy_(rows)
+            g.graph.replay()
+            for fn, n in g.launches:
+                fn.launches += n
+            self.graph_replays += 1
+            return g.outs.clone()
+        st = self.state if self.donate else ShardedHeapState(
+            self.state.a.clone(), self.state.size.clone())
+        outs, _k = _sharded_mixed_rows(st, rows, **self._pass_kw)
+        self.state = st
+        return outs
+
+    def _dispatch_rows(self, specs, site: str) -> _RoundsFetch:
+        """Pad ``specs`` (:func:`pad_rows`), run the occupancy guard over
+        every update row before anything is dispatched (atomic refusal),
+        and dispatch them as one transaction of the ``DispatchGuard``.
+        Returns the dispatch's shared fetch, which also re-tightens the
+        occupancy mirror."""
+        specs = pad_rows(specs, self.c_max)
 
         def commit():
-            # guard the WHOLE command queue before dispatching anything: a
-            # refusal must leave the mirror exactly as it was
-            for ne, buf, ni in specs:
-                self._guard_and_account(ne, buf, ni)
-            self.state, outs, _k = sharded_apply_rounds(
-                self.state, specs, donate=self.donate, **self._pass_kw)
-            return outs
+            for tag, ne, buf, ni in specs:
+                if tag == MEGA_UPDATE:
+                    self._guard_and_account(ne, buf, ni)
+            return self._run_rows(specs)
 
         if self._guard is not None:
             outs = self._guard.run(commit, self._snapshot, self._restore,
-                                   site="pq.apply_rounds")
+                                   site=site)
         else:
             saved = (self._sizes_ub.copy(), self._total)
             try:
@@ -518,13 +671,107 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             except ValueError:
                 self._sizes_ub, self._total = saved
                 raise
-        shared = _RoundsFetch(outs, extra=self._fetch_sizes,
-                              on_fetch=self._refresh_sizes)
+        return _RoundsFetch(outs, extra=self._fetch_sizes,
+                            on_fetch=self._refresh_sizes)
+
+    def apply_rounds_async(self, rounds) -> list:
+        """Apply R sequential combined batches back to back (DESIGN.md
+        §12): the rounds are lowered onto ≤ c_max update rows and
+        dispatched as the megapass's rows (:meth:`_dispatch_rows`: one
+        graph replay on the card), the sync-free occupancy guard run per
+        row on the host first.  Returns one ``RoundResult`` per round;
+        every round shares one blocking fetch, which also re-tightens the
+        occupancy mirror."""
+        specs, layout = expand_rounds(rounds, self.c_max)
+        if not specs:
+            return [RoundResult(sn, ri, None) for sn, ri in layout]
+        shared = self._dispatch_rows(
+            [(MEGA_UPDATE, ne, buf, ni) for ne, buf, ni in specs],
+            site="pq.apply_rounds")
         return [RoundResult(sn, ri, shared) for sn, ri in layout]
 
     def apply_rounds(self, rounds) -> list:
         """Blocking :meth:`apply_rounds_async`: per-round answer lists."""
         return [h.result() for h in self.apply_rounds_async(rounds)]
+
+    # -- fused mixed update+read megapass (DESIGN.md §17) --------------------
+    def mixed_rounds(self, rounds):
+        """R heterogeneous update/``peek_min`` rounds as ONE dispatch of
+        packed rows (one graph replay on the card).  Update rounds lower
+        onto :func:`expand_rounds` rows (tag ``MEGA_UPDATE``), each
+        non-empty ``peek_min`` round becomes one read-only frontier-merge
+        row (tag ``MEGA_READ``), and every returned handle shares the
+        dispatch's one blocking fetch.  Read rounds containing ``values``
+        send the whole call to the base per-round dispatch — a whole-heap
+        dump cannot ride a (R, c_max) result slot."""
+        rounds = [(k, list(m), list(i)) for k, m, i in rounds]
+        for kind, methods, _ in rounds:
+            if kind not in ("update", "read"):
+                raise ValueError(f"unknown round kind {kind!r} "
+                                 f"(want 'update' or 'read')")
+            if kind == "read" and any(m != "peek_min" for m in methods):
+                return substrate.BatchedStructure.mixed_rounds(self, rounds)
+        specs, plans = self._mixed_specs(rounds)
+        shared = (self._dispatch_rows(specs, site="pq.mixed_rounds")
+                  if specs else None)
+        return self._mixed_handles(plans, shared)
+
+    def _mixed_specs(self, rounds):
+        """Lower update / ``peek_min`` rounds onto rows ``[(tag, ne, buf,
+        ni)]`` (before padding), with one plan a round for its handle."""
+        specs: List[Tuple[int, int, np.ndarray, int]] = []
+        plans: List[Tuple] = []
+        pad = np.full((self.c_max,), np.inf, np.float32)
+        for kind, methods, inputs in rounds:
+            if kind == "update":
+                ne = 0
+                ins: List[float] = []
+                for m, i in zip(methods, inputs):
+                    if m == "insert":
+                        ins.append(float(i))
+                    elif m == "extract_min":
+                        ne += 1
+                    else:
+                        raise ValueError(f"unknown update method {m!r}")
+                sub, layout = expand_rounds([(ne, ins)], self.c_max)
+                row_lo = len(specs)
+                (slice_ne, row_ids), = layout
+                specs.extend((MEGA_UPDATE, ne_r, buf, ni)
+                             for ne_r, buf, ni in sub)
+                plans.append(("update", slice_ne,
+                              [row_lo + r for r in row_ids], methods))
+            elif methods:
+                plans.append(("read", len(specs), len(methods)))
+                specs.append((MEGA_READ, 1, pad, 0))
+            else:
+                plans.append(("read", None, 0))
+        return specs, plans
+
+    @classmethod
+    def _mixed_handles(cls, plans, shared: Optional[_RoundsFetch]):
+        """One handle a round plan, every one resolved by ``shared``'s
+        one fetch (None: nothing was dispatched)."""
+        if shared is None:
+            return [cls._empty_round_handle(p) for p in plans]
+        handles: List[Any] = []
+        for plan in plans:
+            if plan[0] == "update":
+                _, slice_ne, row_ids, methods = plan
+                rr = RoundResult(slice_ne, row_ids,
+                                 shared if row_ids else None)
+                handles.append(_PQBatchHandle(rr, methods))
+            else:
+                _, row, n_ops = plan
+                handles.append(_PQPeekRound(shared if n_ops else None,
+                                            row if row is not None else 0,
+                                            n_ops))
+        return handles
+
+    @staticmethod
+    def _empty_round_handle(plan):
+        if plan[0] == "update":
+            return _PQBatchHandle(None, plan[3])
+        return _PQPeekRound(None, 0, 0)
 
     def values(self) -> list:
         a, sizes = to_numpy(self.state)
@@ -563,7 +810,8 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         if not methods:
             return []
         if all(m == "peek_min" for m in methods):
-            merged, _k = _peek_min_impl(self.state, 1, c_max=self.c_max)
+            one = torch.ones((), dtype=torch.int32, device=self.device)
+            merged, _k = _peek_min_impl(self.state, one, c_max=self.c_max)
             head, sizes = _bpq._host_fetch((merged[:1],
                                             self._fetch_sizes()))
             self._refresh_sizes(sizes)
@@ -733,6 +981,10 @@ substrate.register(substrate.StructureSpec(
     # the PQ's documented contract is one fetch per CONSUMED apply
     # (AsyncBatchResult), not read-resolves-updates
     reads_resolve_updates=False,
-    megapass=False,
-    extras={"serve_kw": dict(capacity=4096, c_max=16, n_shards=4)},
+    megapass=True,
+    extras={"serve_kw": dict(capacity=4096, c_max=16, n_shards=4),
+            # reads the megapass conformance stage drives: peek_min rides
+            # the fused rows ("values" dumps the whole heap stack)
+            "megapass_read": lambda rng, k, ctx: (["peek_min"] * k,
+                                                  [None] * k)},
 ))

@@ -59,8 +59,8 @@ _F = ctypes.c_float
 _RWKV6 = [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P]
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
-    # a, size, K, cap, ne, c_max, ids, vals, stream
-    "heap_kmin_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # a, size, K, cap, ne (a device int32), c_max, ids, vals, stream
+    "heap_kmin_launch": [_P, _P, _I, _I, _P, _I, _P, _P, _P],
     # a, size, starts, active, K, cap, c, stream
     "heap_sift_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # a, size, rem, m_left, K, cap, C, size_out, stream
@@ -73,7 +73,7 @@ SIGNATURES = {
     "label_prop_scratch_words": [_I, _I],
     # K, N, C, a_keys, its row stride, a_vals, stride, keep, stride,
     # b_keys, stride, b_vals, stride, b_count, out keys, stride, out vals,
-    # stride, scratch, epoch, stream
+    # stride, scratch, its 64-bit words, stream
     "sorted_merge_launch": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P,
                             _L, _P, _P, _L, _P, _L, _P, _L, _P],
     # K, N -> 64-bit words of scratch

@@ -18,8 +18,11 @@
 // round trip (L2 or HBM, ~0.5-1 us) a step: ~16 at the pass's c_max.
 // What the design does about it: the children come from an on-chip cache.
 //   - At launch the warp loads, as one batch of independent loads issued
-//     with size[k], the root and the top kTopLevels levels (nodes 1 ..
-//     2^T - 1, at their ids in shared memory), masked by size afterwards.
+//     with size[k] and the extract count, the root and the top kTopLevels
+//     levels (nodes 1 .. 2^T - 1, at their ids in shared memory), masked
+//     by size afterwards.  The extract count is a device int32 read in
+//     that same round trip, so a captured CUDA graph replays the launch
+//     with whatever count the pass wrote there.
 //     The c smallest nodes form a subtree of <= c nodes holding the root,
 //     so in a large heap most of their children lie in these levels.
 //   - A step that takes a node whose children are not cached (a miss)
@@ -81,8 +84,9 @@ __device__ __forceinline__ int child_slot(int c) {
 template <int kSlots>
 __global__ void __launch_bounds__(32)
     heap_kmin_kernel(const float* __restrict__ a,
-                     const int* __restrict__ size, int cap, int ne,
-                     int c_max, int* __restrict__ ids,
+                     const int* __restrict__ size, int cap,
+                     const int* __restrict__ n_extract, int c_max,
+                     int* __restrict__ ids,
                      float* __restrict__ vals) {
   __shared__ float cache[kTop + kMaxC * kSub];
   const int k = blockIdx.x;
@@ -91,8 +95,10 @@ __global__ void __launch_bounds__(32)
   int* ids_k = ids + static_cast<size_t>(k) * c_max;
   float* vals_k = vals + static_cast<size_t>(k) * c_max;
 
-  // one round trip: size, the root and the top levels, all independent
+  // one round trip: size, the extract count, the root and the top levels,
+  // all independent
   const int sz = size[k];
+  const int ne = *n_extract;
   const float root = ak[1];
   float top[kTopLoads];
 #pragma unroll
@@ -207,18 +213,20 @@ __global__ void __launch_bounds__(32)
 }
 
 template <int kSlots>
-void launch(const void* a, const void* size, int K, int cap, int ne,
+void launch(const void* a, const void* size, int K, int cap, const void* ne,
             int c_max, void* ids, void* vals, cudaStream_t stream) {
   heap_kmin_kernel<kSlots><<<K, 32, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const int*>(size), cap, ne,
-      c_max, static_cast<int*>(ids), static_cast<float*>(vals));
+      static_cast<const float*>(a), static_cast<const int*>(size), cap,
+      static_cast<const int*>(ne), c_max, static_cast<int*>(ids),
+      static_cast<float*>(vals));
 }
 
 }  // namespace
 
+// ne: a device pointer to the batch's extract count (one int32)
 extern "C" int heap_kmin_launch(const void* a, const void* size, int K,
-                                int cap, int ne, int c_max, void* ids,
-                                void* vals, void* stream) {
+                                int cap, const void* ne, int c_max,
+                                void* ids, void* vals, void* stream) {
   if (c_max < 1 || c_max > kMaxC) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

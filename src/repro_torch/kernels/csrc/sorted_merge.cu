@@ -47,10 +47,18 @@
 //   4. The pad CTAs wait for each shard's last inclusive word (so L =
 //      kept + b_count) and write (+inf, +inf) over [L, N), spread over all
 //      of them: keep-none and empty-A rows are a whole row of it.
-// Nothing is reset by a launch of its own: the status words carry the
-// call's epoch (a word of an earlier call reads as not ready), the
-// wrapper keeps one zeroed scratch per stream and numbers the calls, and
-// the CTA that draws the last ticket puts the ticket counter back to 0.
+// Nothing is reset by a launch of its own, and no launch argument changes
+// from call to call on one scratch, so a CUDA graph can capture a call and
+// replay it: the status words carry the call's epoch (a word of an earlier
+// call reads as not ready), and the epoch lives on the device.  Word 0 of
+// the scratch holds the ticket counter (low 32 bits) and the previous
+// call's epoch (high 32 bits); every CTA reads both with the one atomic
+// that draws its ticket, so all CTAs of a call see one epoch, and the CTA
+// that draws the last ticket stores this call's epoch with the counter
+// back at 0.  When the epoch field is spent (the call that takes its last
+// value), that CTA instead waits for every other CTA to finish (word 1
+// counts them), clears every status word and starts the epochs again at 0.
+// The wrapper keeps one scratch per stream, zeroed once when it is made.
 //
 // What bounds it on an H100: bytes, then latency.  The function needs the
 // one-byte keep of every A slot, key and value of the kept slots only, the
@@ -124,10 +132,13 @@ struct Args {
   long long sok;
   float* ov;
   long long sov;
-  unsigned* ticket;              // word 0 of the scratch
-  unsigned long long* status;    // (K * T) status words
-  unsigned long long epoch;
+  unsigned long long* ticket;    // word 0: ticket | previous epoch << 32
+  unsigned* done;                // word 1: CTAs finished (wrap calls only)
+  unsigned long long* status;    // words 2 ..: (K * T) status words, and
+  long long n_status;            // any left over from a larger call
 };
+
+constexpr unsigned long long kEpochs = 1ull << (64 - kEpochShift);
 
 __device__ __forceinline__ unsigned long long word(unsigned long long epoch,
                                                    bool incl, int cnt,
@@ -247,7 +258,8 @@ __device__ void look_back(const unsigned long long* st, int t,
 // A pad CTA: for each shard, wait for its last tile's inclusive word, then
 // write (+inf, +inf) over [kept + b_count, N), CTA h of H taking every H-th
 // run of kThreads slots.
-__device__ void pad_tails(const Args& a, int h, int H) {
+__device__ void pad_tails(const Args& a, unsigned long long epoch, int h,
+                          int H) {
   __shared__ long long s_len;
   const float inf = __int_as_float(0x7f800000);
   for (int k = 0; k < a.K; ++k) {
@@ -255,7 +267,7 @@ __device__ void pad_tails(const Args& a, int h, int H) {
       const unsigned long long* p =
           a.status + static_cast<long long>(k) * a.T + (a.T - 1);
       unsigned long long w = load_acquire(p);
-      while ((w >> kEpochShift) != a.epoch || !word_incl(w)) {
+      while ((w >> kEpochShift) != epoch || !word_incl(w)) {
         __nanosleep(64);
         w = load_acquire(p);
       }
@@ -275,6 +287,35 @@ __device__ void pad_tails(const Args& a, int h, int H) {
   }
 }
 
+// The end of a CTA of the call that spends the epoch field: the others
+// count themselves done; the last drawer waits for them, clears every
+// status word and restarts the epochs (the next call takes epoch 1).
+__device__ void finish_wrap(const Args& a, bool last) {
+  __syncthreads();  // the CTA's status reads and writes are issued
+  if (!last) {
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(a.done, 1u);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    while (atomicAdd(a.done, 0u) < gridDim.x - 1) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+  for (long long i = threadIdx.x; i < a.n_status; i += kThreads) {
+    a.status[i] = 0ull;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *a.done = 0u;
+    __threadfence();
+    atomicExch(a.ticket, 0ull);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 sorted_merge_kernel(Args a) {
   __shared__ float sB[kMaxLanes];
@@ -282,22 +323,34 @@ sorted_merge_kernel(Args a) {
   __shared__ int sCnt[kItems * kWarps];  // kept count of (row, warp)
   __shared__ int sMax[kWarps];
   __shared__ int s_ticket, s_mprev;
+  __shared__ unsigned long long s_epoch;
   __shared__ long long s_prefix;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   trace(0, true);
   trace(1);
   if (tid == 0) {
-    const unsigned t = atomicAdd(a.ticket, 1u);
-    if (t == gridDim.x - 1) atomicExch(a.ticket, 0u);  // the next call's 0
+    const unsigned long long w = atomicAdd(a.ticket, 1ull);
+    const unsigned t = static_cast<unsigned>(w);
+    const unsigned long long epoch = (w >> 32) + 1ull;
+    // the next call's 0 and this call's epoch, unless this call spends
+    // the field (then finish_wrap resets the word)
+    if (t == gridDim.x - 1 && epoch < kEpochs - 1) {
+      atomicExch(a.ticket, epoch << 32);
+    }
     s_ticket = static_cast<int>(t);
+    s_epoch = epoch;
   }
   __syncthreads();
+  const unsigned long long ep = s_epoch;
+  const bool wrap = ep == kEpochs - 1;
+  const bool last = s_ticket == static_cast<int>(gridDim.x) - 1;
   const int tiles = a.K * a.T;
   trace(2);
   if (s_ticket >= tiles) {
-    pad_tails(a, s_ticket - tiles, gridDim.x - tiles);
+    pad_tails(a, ep, s_ticket - tiles, gridDim.x - tiles);
     trace(6);
     trace(7, true);
+    if (wrap) finish_wrap(a, last);
     return;
   }
   const int k = s_ticket / a.T;
@@ -366,12 +419,12 @@ sorted_merge_kernel(Args a) {
     long long pc = 0;
     int pm = 0;
     if (t == 0) {
-      if (lane == 0) publish(st, word(a.epoch, true, total, tile_m));
+      if (lane == 0) publish(st, word(ep, true, total, tile_m));
     } else {
-      if (lane == 0) publish(st + t, word(a.epoch, false, total, tile_m));
-      look_back(st, t, a.epoch, &pc, &pm);
+      if (lane == 0) publish(st + t, word(ep, false, total, tile_m));
+      look_back(st, t, ep, &pc, &pm);
       if (lane == 0) {
-        publish(st + t, word(a.epoch, true, static_cast<int>(pc) + total,
+        publish(st + t, word(ep, true, static_cast<int>(pc) + total,
                              max(pm, tile_m)));
       }
     }
@@ -423,6 +476,7 @@ sorted_merge_kernel(Args a) {
   }
   trace(6);
   trace(7, true);
+  if (wrap) finish_wrap(a, last);
 }
 
 }  // namespace
@@ -439,11 +493,11 @@ extern "C" int sorted_merge_max_lanes() { return kMaxLanes; }
 
 extern "C" int sorted_merge_tile() { return kTile; }
 
-// The scratch a (K, N) call needs, in 64-bit words: the ticket counter,
-// then one status word a tile.  Zero it once when it is made; calls on it
-// must come in stream order, each with a larger epoch (1 .. 2^21 - 1).
+// The scratch a (K, N) call needs, in 64-bit words: the ticket counter and
+// the epoch, the done counter, then one status word a tile.  Zero it once
+// when it is made; calls on it must come in stream order, one at a time.
 extern "C" int sorted_merge_scratch_words(int K, int N) {
-  return 1 + K * ((N + kTile - 1) / kTile);
+  return 2 + K * ((N + kTile - 1) / kTile);
 }
 
 // Strides are in elements; every row's last stride is 1.
@@ -455,9 +509,9 @@ extern "C" int sorted_merge_launch(int K, int N, int C, const void* ak,
                                    long long sbv, const void* bcount,
                                    void* okeys, long long sok, void* ovals,
                                    long long sov, void* scratch,
-                                   long long epoch, void* stream) {
-  if (C > kMaxLanes || C < 0 || K < 1 || N < 1 || epoch < 1 ||
-      epoch >= (1ll << (64 - kEpochShift))) {
+                                   long long scratch_words, void* stream) {
+  if (C > kMaxLanes || C < 0 || K < 1 || N < 1 ||
+      scratch_words < sorted_merge_scratch_words(K, N)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -481,9 +535,10 @@ extern "C" int sorted_merge_launch(int K, int N, int C, const void* ak,
   a.ov = static_cast<float*>(ovals);
   a.sov = sov;
   const long long tiles = static_cast<long long>(K) * a.T;
-  a.ticket = static_cast<unsigned*>(scratch);
-  a.status = static_cast<unsigned long long*>(scratch) + 1;
-  a.epoch = static_cast<unsigned long long>(epoch);
+  a.ticket = static_cast<unsigned long long*>(scratch);
+  a.done = reinterpret_cast<unsigned*>(a.ticket + 1);
+  a.status = a.ticket + 2;
+  a.n_status = scratch_words - 2;
   const long long grid = tiles + (tiles < kPadCtas ? tiles : kPadCtas);
   if (grid > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   sorted_merge_kernel<<<static_cast<unsigned>(grid), kThreads, 0,

@@ -6,6 +6,9 @@ its plain PyTorch version.
 
 The wrappers pick their path from the heap's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs :func:`k_smallest_plain`.
+The extract count is a () int32 tensor on the heap's device, read by the
+kernel, never by the host: a CUDA graph that captured the launch replays
+it with whatever count the pass wrote there.
 ``k_smallest_sharded.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -21,15 +24,30 @@ MAX_C = 64          # the kernel keeps the 2*c_max+1 frontier in registers
                     # (at most five slots a lane) and one cached block a step
 
 
-def k_smallest_plain(a: torch.Tensor, size: torch.Tensor, n_extract: int,
+def _require_count(n_extract: torch.Tensor, device: torch.device) -> None:
+    if not isinstance(n_extract, torch.Tensor):
+        raise TypeError("n_extract must be a () int32 tensor on the heap's "
+                        f"device, got {type(n_extract).__name__}")
+    if (n_extract.dtype != torch.int32 or n_extract.dim() != 0
+            or n_extract.device != device):
+        raise ValueError(f"n_extract must be a () int32 tensor on {device}, "
+                         f"got {tuple(n_extract.shape)} {n_extract.dtype} "
+                         f"on {n_extract.device}")
+
+
+def k_smallest_plain(a: torch.Tensor, size: torch.Tensor,
+                     n_extract: torch.Tensor,
                      c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Torch port of ``batched_pq._k_smallest`` over a shard axis.
 
     a: (K, cap) f32; size: (K,) int32; n_extract: the batch's extract
-    count.  Returns (ids (K, c_max) int32, vals (K, c_max) f32): each
-    shard's ``min(n_extract, size_k)`` smallest nodes, ascending, padded
-    with (0, +inf).  The argmin takes the first minimum, as ``jnp.argmin``.
+    count, a () int32 tensor on a's device.  Returns (ids (K, c_max)
+    int32, vals (K, c_max) f32): each shard's ``min(n_extract, size_k)``
+    smallest nodes, ascending, padded with (0, +inf).  The argmin takes
+    the first minimum, as ``jnp.argmin``.  A fixed loop of c_max steps
+    that never reads a tensor on the host, so it can be captured.
     """
+    _require_count(n_extract, a.device)
     K = a.shape[0]
     dev = a.device
     F = 2 * c_max + 1
@@ -64,15 +82,16 @@ def k_smallest_plain(a: torch.Tensor, size: torch.Tensor, n_extract: int,
     return ids, vals
 
 
-def k_smallest_sharded(a: torch.Tensor, size: torch.Tensor, n_extract: int,
-                       *, c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def k_smallest_sharded(a: torch.Tensor, size: torch.Tensor,
+                       n_extract: torch.Tensor, *, c_max: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-shard frontier search, one warp per shard on the card.
 
-    a: (K, cap) f32 heap stack; size: (K,) int32; n_extract: host int
-    (the combined batch's global extract count).  Returns (ids (K, c_max)
-    int32, vals (K, c_max) f32), ascending per shard, (0, +inf)-padded.
+    a: (K, cap) f32 heap stack; size: (K,) int32; n_extract: () int32 on
+    a's device (the combined batch's global extract count, read by the
+    kernel).  Returns (ids (K, c_max) int32, vals (K, c_max) f32),
+    ascending per shard, (0, +inf)-padded.
     """
-    n_extract = int(n_extract)
     if a.device.type == "cpu":
         return k_smallest_plain(a, size, n_extract, c_max)
     K, cap = a.shape
@@ -82,10 +101,11 @@ def k_smallest_sharded(a: torch.Tensor, size: torch.Tensor, n_extract: int,
         raise ValueError("heap capacity must be >= 2 (slot 0 is scratch)")
     _build.require(a, "a", torch.float32, (K, cap), a.device)
     _build.require(size, "size", torch.int32, (K,), a.device)
+    _require_count(n_extract, a.device)
     ids = torch.empty((K, c_max), dtype=torch.int32, device=a.device)
     vals = torch.empty((K, c_max), dtype=torch.float32, device=a.device)
     rc = _build.library().heap_kmin_launch(
-        a.data_ptr(), size.data_ptr(), K, cap, n_extract, c_max,
+        a.data_ptr(), size.data_ptr(), K, cap, n_extract.data_ptr(), c_max,
         ids.data_ptr(), vals.data_ptr(), _build.stream(a.device))
     _build.check(rc, "heap_kmin")
     k_smallest_sharded.launches += 1
@@ -95,10 +115,11 @@ def k_smallest_sharded(a: torch.Tensor, size: torch.Tensor, n_extract: int,
 k_smallest_sharded.launches = 0
 
 
-def k_smallest(a: torch.Tensor, size: torch.Tensor, n_extract: int, *,
-               c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-heap form: a (cap,), size () int32 -> (ids (c_max,),
-    vals (c_max,)); the K = 1 launch of :func:`k_smallest_sharded`."""
+def k_smallest(a: torch.Tensor, size: torch.Tensor, n_extract: torch.Tensor,
+               *, c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-heap form: a (cap,), size () int32, n_extract () int32 ->
+    (ids (c_max,), vals (c_max,)); the K = 1 launch of
+    :func:`k_smallest_sharded`."""
     ids, vals = k_smallest_sharded(a[None], size.reshape(1), n_extract,
                                    c_max=c_max)
     return ids[0], vals[0]

@@ -22,8 +22,10 @@ another buffer than A (the kernel reads A while it writes): ``out=`` takes
 two (K, N) tensors whose rows may be strided, e.g. the bodies of a fresh
 ``(K, N + 1)`` state row block, so the pass writes its next state in
 place.  The kernel's look-back status words live in one scratch a CUDA
-stream, zeroed once when it is made (or outgrown) and numbered by a
-per-call epoch, so a call launches nothing besides the kernel.
+stream, zeroed once when it is made (or outgrown); each call's epoch is
+kept in the scratch and advanced by the kernel itself, so a call
+launches nothing besides the kernel and takes no argument that changes
+from call to call: a CUDA graph that captured a call replays it right.
 :func:`merge_compact` is the K = 1 call.
 """
 from __future__ import annotations
@@ -108,21 +110,31 @@ def _kernel_limits() -> Tuple[int, int]:
 
 
 EPOCHS = 1 << 21        # the status word's epoch field (csrc/sorted_merge.cu)
-_scratch = {}           # (device index, stream) -> [int64 scratch, epoch]
+_scratch = {}           # (device index, stream) -> int64 scratch
+_retired = []           # outgrown scratches a captured graph may still use
 _scratch_lock = threading.Lock()
 
 
-def _status_scratch(dev: torch.device, stream: int, words: int):
-    """The look-back scratch of ``stream`` (zeroed when it is made: at the
-    first call, when a call outgrows it, and when the epochs run out) and
-    this call's epoch.  Calls on one stream run in its order, so a status
-    word of an earlier call never carries the epoch of a later one."""
+def _status_scratch(dev: torch.device, stream: int,
+                    words: int) -> torch.Tensor:
+    """The look-back scratch of ``stream``, zeroed when it is made: at the
+    first call and when a call outgrows it.  Word 0 holds the ticket
+    counter and the last call's epoch, which the kernel advances (and
+    restarts, clearing the status words, when the epoch field is spent),
+    so calls on one stream, which run in its order, never meet a status
+    word of an earlier call stamped with their own epoch.
+
+    Under a CUDA graph the captured call keeps the scratch of the stream
+    it was captured on: replays of one graph must not overlap one another
+    or a call on that stream.  An outgrown scratch is kept alive, since a
+    graph may still replay on it."""
     key = (dev.index, stream)
     s = _scratch.get(key)
-    if s is None or s[0].numel() < words or s[1] + 1 >= EPOCHS:
-        s = [torch.zeros(words, dtype=torch.int64, device=dev), 0]
+    if s is None or s.numel() < words:
+        if s is not None:
+            _retired.append(s)
+        s = torch.zeros(words, dtype=torch.int64, device=dev)
         _scratch[key] = s
-    s[1] += 1
     return s
 
 
@@ -135,8 +147,8 @@ def merge_compact_sharded(a_keys: torch.Tensor, a_vals: torch.Tensor,
     :func:`merge_compact_plain`).  On CUDA tensors: one kernel launch on
     the current stream, no host sync (``b_count`` is read on the device)
     and no other launch (the stream's look-back scratch is zeroed once,
-    when first made); ``a_keep`` is bool there, and ``out`` must not
-    overlap A."""
+    when first made, and the kernel keeps its epoch there);
+    ``a_keep`` is bool there, and ``out`` must not overlap A."""
     if a_keys.device.type == "cpu":
         return merge_compact_plain(a_keys, a_vals, a_keep, b_keys, b_vals,
                                    b_count, out=out)
@@ -163,15 +175,14 @@ def merge_compact_sharded(a_keys: torch.Tensor, a_vals: torch.Tensor,
     lib = _build.library()
     stream = _build.stream(dev)
     with _scratch_lock:
-        scratch, epoch = _status_scratch(
-            dev, stream, lib.sorted_merge_scratch_words(K, n))
+        scratch = _status_scratch(dev, stream,
+                                  lib.sorted_merge_scratch_words(K, n))
         rc = lib.sorted_merge_launch(
             K, n, c, a_keys.data_ptr(), sak, a_vals.data_ptr(), sav,
             a_keep.data_ptr(), skeep, b_keys.data_ptr(), sbk,
             b_vals.data_ptr(), sbv, b_count.data_ptr(), out[0].data_ptr(),
-            sok, out[1].data_ptr(), sov, scratch.data_ptr(), epoch, stream)
-        if rc != 0:         # a launch that did not run leaves no state
-            _scratch.pop((dev.index, stream), None)
+            sok, out[1].data_ptr(), sov, scratch.data_ptr(),
+            scratch.numel(), stream)
     _build.check(rc, "sorted_merge")
     merge_compact_sharded.launches += 1
     return out

@@ -139,10 +139,12 @@ class StructureExecutor:
     handles — the §3.3 read-optimized transform with the scheduler's
     combiner loop playing the combiner.  ``megapass=True``
     (DESIGN.md §17) hands the two to ONE ``mixed_rounds`` call — an
-    update round followed by a read round.  No port structure fuses the
-    rounds yet (ROADMAP A18), so it runs the protocol's one-pass-per-
-    round fallback, with the same answers.  ``device`` (``None``: the
-    card) reaches ``spec.make``.
+    update round followed by a read round.  The PQ, the map and the
+    graph fuse the rounds into one dispatch (the PQ's is one CUDA-graph
+    replay on the card; a PQ read round of ``values`` takes the base
+    per-round dispatch, as in the reference); the sketch and the
+    union-find run the protocol's one-pass-per-round fallback, with the
+    same answers.  ``device`` (``None``: the card) reaches ``spec.make``.
     """
 
     def __init__(self, spec: substrate.StructureSpec, *,

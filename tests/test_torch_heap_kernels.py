@@ -117,8 +117,8 @@ def signed_zero_heap(rng, size):
 @pytest.mark.parametrize("seed", CASES)
 def test_k_smallest_matches_xla_twin_and_oracle(seed, c_max):
     a, size, ne, _, _ = case_inputs(seed, c_max)
-    ids, vals = heap_kmin.k_smallest(_t(a), _t(size, torch.int32), ne,
-                                     c_max=c_max)
+    ids, vals = heap_kmin.k_smallest(_t(a), _t(size, torch.int32),
+                                     _t(ne, torch.int32), c_max=c_max)
     jids, jvals = _jk_smallest(jnp.asarray(a), jnp.int32(size),
                                jnp.int32(ne), c_max=c_max)
     rids, rvals = k_smallest_reference(a, size, ne, c_max)
@@ -214,8 +214,9 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     launch: the wrapper raises."""
     a = torch.full((1, 8), float("inf"), device="meta")
     size = torch.zeros(1, dtype=torch.int32, device="meta")
+    ne = torch.ones((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        heap_kmin.k_smallest_sharded(a, size, 1, c_max=2)
+        heap_kmin.k_smallest_sharded(a, size, ne, c_max=2)
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +240,9 @@ def test_cuda_kernels_equal_plain_versions(cuda, seed, c_max):
     a, size, ne, vals, ni = case_inputs(seed, c_max)
     at = _t(a).to(cuda)[None]
     st = _t([size], torch.int32).to(cuda)
-    ids, kv = heap_kmin.k_smallest_sharded(at, st, ne, c_max=c_max)
-    pids, pv = heap_kmin.k_smallest_plain(at, st, ne, c_max)
+    ne_t = _t(ne, torch.int32).to(cuda)
+    ids, kv = heap_kmin.k_smallest_sharded(at, st, ne_t, c_max=c_max)
+    pids, pv = heap_kmin.k_smallest_plain(at, st, ne_t, c_max)
     assert torch.equal(ids, pids) and torch.equal(kv, pv)
 
     a2, size2, _, _, starts, active, rem, m_left = tbpq._phases12(
@@ -265,6 +267,8 @@ def test_cuda_kernels_equal_plain_versions(cuda, seed, c_max):
         at = _t(a).to(cuda)[None]
         st = _t([size], torch.int32).to(cuda)
         for ne in (c_max, size + 1):
-            ids, kv = heap_kmin.k_smallest_sharded(at, st, ne, c_max=c_max)
-            pids, pv = heap_kmin.k_smallest_plain(at, st, ne, c_max)
+            ne_t = _t(ne, torch.int32).to(cuda)
+            ids, kv = heap_kmin.k_smallest_sharded(at, st, ne_t,
+                                                   c_max=c_max)
+            pids, pv = heap_kmin.k_smallest_plain(at, st, ne_t, c_max)
             assert torch.equal(ids, pids) and torch.equal(kv, pv)

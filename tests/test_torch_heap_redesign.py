@@ -369,7 +369,7 @@ def sift_cases(c, seed):
     vals = np.full(c, np.inf, np.float32)
     vals[:ni] = rng.integers(0, 3000, ni).astype(np.float32)
     at, st = _t(a)[None], _t([size], torch.int32)
-    phase1 = heap_kmin.k_smallest_plain(at, st, ne, c)
+    phase1 = heap_kmin.k_smallest_plain(at, st, _t(ne, torch.int32), c)
     a2, size2, _, _, starts, active, _, _ = tbpq._phases12(
         at.clone(), st, _t([ne], torch.int32), _t(vals)[None],
         _t([ni], torch.int32), c_max=c, phase1=phase1, n_pull=c)

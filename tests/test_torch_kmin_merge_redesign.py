@@ -27,8 +27,13 @@ way the kernel computes:
   holds; the shard's last tile places the B above every kept A; pad CTAs
   wait for each shard's last inclusive word and pad the tail.  The
   status words use the kernel's field layout and the call's epoch, and
-  two calls run in a row on one scratch with no reset.  Every output
-  slot must be written exactly once.
+  two calls run in a row on one scratch with no reset.  The epoch lives
+  in the scratch, as the kernel keeps it: each CTA reads it with the
+  draw of its ticket, the last drawer stores the call's epoch, and the
+  call that spends the epoch field waits for its other CTAs, clears the
+  status words and starts the epochs again -- shown through several
+  wraps of a small field, calls with identical arguments on new inputs.
+  Every output slot must be written exactly once.
 
 Every result is held to ``k_smallest_plain`` / ``merge_compact_plain``,
 to the JAX ``batched_pq._k_smallest`` / ``merge_compact_xla`` and to the
@@ -226,7 +231,8 @@ def _jkmin(c_max):
 def _held_to_plain_jax_oracle(a, size, ne, c_max, ids, vals, what):
     pids, pvals = k_smallest_plain(torch.from_numpy(a)[None],
                                    torch.tensor([size], dtype=torch.int32),
-                                   ne, c_max)
+                                   torch.tensor(ne, dtype=torch.int32),
+                                   c_max)
     # the plain version returns the frontier minimum (equal to the taken
     # value, but either zero's sign); the JAX scan and the oracle return
     # the taken slot's value, as the kernel does
@@ -369,14 +375,20 @@ def fields(w):
 
 
 class Scratch:
-    """The wrapper's per-stream scratch: the ticket counter and the status
-    words, zeroed once; each call takes the next epoch."""
+    """The wrapper's per-stream scratch as the kernel keeps it, zeroed
+    once: word 0 the ticket counter and the previous call's epoch, word 1
+    the done counter, then the status words.  ``epochs`` is the size of
+    the epoch field (the kernel's is ``merge_ops.EPOCHS``)."""
 
-    def __init__(self, words):
+    def __init__(self, words, epochs=None, clear_on_wrap=True):
         self.ticket = 0
+        self.prev_epoch = 0
+        self.done = 0
         self.status = [0] * words
-        self.epoch = 0
+        self.epochs = merge_ops.EPOCHS if epochs is None else epochs
+        self.clear_on_wrap = clear_on_wrap
         self.stale_seen = 0       # reads of an earlier call's word
+        self.wraps = 0            # calls that spent the epoch field
 
 
 class Geometry:
@@ -391,21 +403,22 @@ class Geometry:
 
 
 def merge_ctas(g, inp, out, writes, sc, check_epoch=True):
-    """The CTAs of one launch as coroutines; returns (grid, factory)."""
+    """The CTAs of one launch as coroutines; returns (grid, factory).
+    ``factory(ticket, epoch)``: the CTA that drew ``ticket`` and read
+    ``epoch`` with it."""
     ak, av, keep, bk, bv, bcount = inp
     K, N = ak.shape
     C = bk.shape[1]
     T = -(-N // g.tile)
     tiles = K * T
     grid = tiles + min(g.pad, tiles)
-    epoch = sc.epoch
 
     def write(k, p, key, val):
         if p < N:
             out[0][k, p], out[1][k, p] = key, val
             writes[k, p] += 1
 
-    def ready(w):
+    def ready(w, epoch):
         ep = fields(w)[0]
         if ep not in (0, epoch):
             sc.stale_seen += 1
@@ -414,7 +427,7 @@ def merge_ctas(g, inp, out, writes, sc, check_epoch=True):
     def valid_b(k):
         return int(np.clip(bcount[k], 0, C))
 
-    def tile(ticket):
+    def tile(ticket, epoch):
         k, t = divmod(ticket, T)
         bc = valid_b(k)
         sB = bk[k, :bc]
@@ -459,7 +472,7 @@ def merge_ctas(g, inp, out, writes, sc, check_epoch=True):
             while True:
                 ws = [sc.status[st + j - q] if j - q >= 0 else
                       word(epoch, True, 0, 0) for q in range(g.window)]
-                rd = [ready(w) for w in ws]
+                rd = [ready(w, epoch) for w in ws]
                 inc = [r and fields(w)[1] for r, w in zip(rd, ws)]
                 upto = inc.index(True) + 1 if any(inc) else g.window
                 if not all(rd[:upto]):
@@ -486,11 +499,11 @@ def merge_ctas(g, inp, out, writes, sc, check_epoch=True):
             for j in range(mincl, bc):
                 write(k, pc + total + j, sB[j], bv[k, j])
 
-    def pad(h, H):
+    def pad(h, H, epoch):
         for k in range(K):
             while True:
                 w = sc.status[k * T + T - 1]
-                if ready(w) and fields(w)[1]:
+                if ready(w, epoch) and fields(w)[1]:
                     break
                 yield
             length = fields(w)[2] + valid_b(k)
@@ -499,9 +512,23 @@ def merge_ctas(g, inp, out, writes, sc, check_epoch=True):
                     write(k, q, INF, INF)
                 yield
 
-    def cta(ticket):
-        return tile(ticket) if ticket < tiles else pad(ticket - tiles,
-                                                       grid - tiles)
+    def cta(ticket, epoch):
+        body = (tile(ticket, epoch) if ticket < tiles else
+                pad(ticket - tiles, grid - tiles, epoch))
+        yield from body
+        if epoch != sc.epochs - 1:
+            return
+        # the call that spends the epoch field: the kernel's finish_wrap
+        if ticket != grid - 1:
+            sc.done += 1
+            return
+        while sc.done < grid - 1:
+            yield
+        if sc.clear_on_wrap:
+            sc.status[:] = [0] * len(sc.status)
+        sc.done = 0
+        sc.ticket, sc.prev_epoch = 0, 0
+        sc.wraps += 1
     return grid, cta
 
 
@@ -512,16 +539,17 @@ def run_merge(g, inp, sc, rng, check_epoch=True):
     out = (np.full((K, N), np.nan, np.float32),
            np.full((K, N), np.nan, np.float32))
     writes = np.zeros((K, N), np.int64)
-    sc.epoch += 1
     grid, cta = merge_ctas(g, inp, out, writes, sc, check_epoch)
-    running, started = [], 0
+    running, started, seen = [], 0, set()
     for _ in range(10 ** 6):
         if started < grid and (not running or rng.random() < 0.3):
-            ticket = sc.ticket
+            # one atomic: the ticket and the previous call's epoch
+            ticket, epoch = sc.ticket, sc.prev_epoch + 1
             sc.ticket += 1
-            if ticket == grid - 1:
-                sc.ticket = 0                    # the last drawer's reset
-            running.append(cta(ticket))
+            if ticket == grid - 1 and epoch < sc.epochs - 1:
+                sc.ticket, sc.prev_epoch = 0, epoch   # the last drawer's
+            seen.add(epoch)
+            running.append(cta(ticket, epoch))
             started += 1
         elif running:
             i = int(rng.integers(len(running)))
@@ -532,7 +560,7 @@ def run_merge(g, inp, sc, rng, check_epoch=True):
         else:
             break
     assert started == grid and not running, "the launch did not finish"
-    assert sc.ticket == 0
+    assert sc.ticket == 0 and len(seen) == 1   # one epoch a call
     return out[0], out[1], writes
 
 
@@ -674,6 +702,49 @@ def test_merge_without_the_epoch_reads_an_earlier_calls_words():
     assert bad > 0
 
 
+@pytest.mark.parametrize("epochs", [3, 4, 7])
+def test_merge_epoch_lives_in_the_scratch_through_wraps(epochs):
+    """Calls with identical launch arguments (one geometry, one scratch)
+    on new inputs, as replays of a captured call make them: each takes
+    its epoch from the scratch, and with a field of ``epochs`` values the
+    calls spend it several times; each wrap leaves the status words clear
+    and the next call at epoch 1, and every call stays right."""
+    g = Geometry()
+    n = 61
+    sc = Scratch(4 * -(-n // g.tile) + 5, epochs=epochs)
+    rng = np.random.default_rng(epochs)
+    for call in range(3 * epochs + 1):
+        mode = MERGE_MODES[call % len(MERGE_MODES)]
+        inp = merge_case(100 * epochs + call, 4, n, 16, mode,
+                         0 if mode == "full" else 1 + call % 16)
+        mk, mv, w = run_merge(g, inp, sc, rng)
+        _held(inp, mk, mv, w, f"epochs={epochs} call {call} {mode}")
+        if sc.prev_epoch == 0:
+            assert not any(sc.status) and sc.done == 0
+    assert sc.wraps >= 2
+    assert sc.stale_seen > 0
+
+
+def test_merge_wrap_without_clearing_reads_a_stale_word():
+    """The clear at a wrap is load-bearing: once the epochs start again, a
+    status word left from a call before the wrap (a larger call, whose
+    words the wrap call did not overwrite) carries the epoch of a call
+    after it and is read as ready (shown in some tile order)."""
+    g = Geometry()
+    bad = 0
+    for seed in range(12):
+        rng = np.random.default_rng(seed)
+        sc = Scratch(4 * -(-100 // g.tile), epochs=3, clear_on_wrap=False)
+        for call, n in enumerate((100, 23, 100)):
+            inp = merge_case(seed + 60 * call, 4, n, 16,
+                             ("half", "few", "all")[call], 16 - 7 * call)
+            mk, _, w = run_merge(g, inp, sc, rng)
+        want = merge_compact_reference(*(x[0] for x in inp))[0]
+        bad += not (np.all(w == 1) and np.array_equal(_bits(mk[0]),
+                                                       _bits(want)))
+    assert bad > 0
+
+
 def test_status_word_fields_hold_the_kernel_ranges():
     """The kept count (31 bits) holds any int32 N, the m field the widest
     B run, and the wrapper's epochs fit their field."""
@@ -687,27 +758,30 @@ def test_status_word_fields_hold_the_kernel_ranges():
 
 
 def test_wrapper_scratch_is_zeroed_once_and_numbers_the_calls():
-    """The stream's scratch is made zeroed, grows (zeroed again) only when
-    a call needs more words, and restarts its epochs before they run out;
-    otherwise each call gets the next epoch on the same buffer."""
+    """The stream's scratch is made zeroed and grows (zeroed again) only
+    when a call needs more words; otherwise every call gets the same
+    buffer, whose word 0 numbers the calls on the device (the kernel's
+    epoch, emulated above), so the wrapper hands the kernel nothing that
+    changes from call to call.  An outgrown scratch stays alive for the
+    graphs that captured it."""
     dev = torch.device("cpu")
     key = (dev.index, 12345)
     merge_ops._scratch.pop(key, None)
+    retired = len(merge_ops._retired)
     try:
-        buf, e1 = merge_ops._status_scratch(dev, 12345, 10)
-        assert e1 == 1 and torch.all(buf == 0)
-        buf[3] = 99
-        buf2, e2 = merge_ops._status_scratch(dev, 12345, 8)
-        assert e2 == 2 and buf2 is buf and int(buf2[3]) == 99
-        buf3, e3 = merge_ops._status_scratch(dev, 12345, 20)
-        assert e3 == 1 and buf3.numel() == 20 and torch.all(buf3 == 0)
-        merge_ops._scratch[key][1] = merge_ops.EPOCHS - 2
-        _, e4 = merge_ops._status_scratch(dev, 12345, 20)
-        assert e4 == merge_ops.EPOCHS - 1
-        buf5, e5 = merge_ops._status_scratch(dev, 12345, 20)
-        assert e5 == 1 and torch.all(buf5 == 0)
+        buf = merge_ops._status_scratch(dev, 12345, 10)
+        assert buf.numel() == 10 and torch.all(buf == 0)
+        buf[0] = 7 << 32              # the kernel's epoch word
+        buf2 = merge_ops._status_scratch(dev, 12345, 8)
+        assert buf2 is buf and int(buf2[0]) == 7 << 32
+        buf3 = merge_ops._status_scratch(dev, 12345, 20)
+        assert buf3.numel() == 20 and torch.all(buf3 == 0)
+        assert len(merge_ops._retired) == retired + 1
+        assert merge_ops._retired[-1] is buf
+        assert merge_ops._status_scratch(dev, 12345, 20) is buf3
     finally:
         merge_ops._scratch.pop(key, None)
+        del merge_ops._retired[retired:]
 
 
 def test_ablation_variants_patch_the_kernel_sources():

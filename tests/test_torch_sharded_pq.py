@@ -198,6 +198,11 @@ def test_registry_entry_builds_the_port_structure():
                    for m, g, w in zip(methods, got, want))
     spec.dump_compare(ds, host)
     assert tsub.names() == ["graph", "map", "pq", "sketch", "unionfind"]
+    # the fused megapass: registry flag, class flag and the fused reads
+    assert spec.megapass and type(ds).supports_megapass
+    assert type(ds).mixed_rounds is not tsub.BatchedStructure.mixed_rounds
+    assert spec.extras["megapass_read"](rng, 2, {}) == (["peek_min"] * 2,
+                                                        [None] * 2)
 
 
 def oracle_batches(rng, n_batches=12):

@@ -14,9 +14,12 @@ and ``sorted_merge.cu`` into one library under
 - ``as_built``: the two sources as they are;
 - ``parent``: ``DIR/src/repro_torch/kernels/csrc/{heap_kmin,sorted_merge}.cu``
   with ``--parent DIR`` (a checkout of the commit before the redesign,
-  e.g. unpacked from ``git archive``: its ``heap_kmin`` entry point takes
-  the same arguments, its ``sorted_merge`` entry point the cooperative
-  form's, called here as that commit's wrapper called it);
+  e.g. unpacked from ``git archive``: its ``sorted_merge`` entry point
+  the cooperative form's, called here as that commit's wrapper called
+  it; its ``heap_kmin`` entry point must take the extract count as a
+  device pointer, as the built one does — a checkout from before the
+  count moved to the device takes a host int, which this tool does not
+  pass);
 - ``T<t>k<k>``: ``heap_kmin.cu`` with ``kTopLevels`` = t and ``kSubLevels``
   = k (``sorted_merge.cu`` as built);
 - ``items<n>``: ``sorted_merge.cu`` with ``kItems`` (A slots a thread; the
@@ -415,9 +418,10 @@ def main(argv=None) -> int:
             if name == "as_built":
                 for ne in (1, 2, 4, 8):
                     res[f"heap_kmin_cold_ms_ne{ne}"] = cs._per_launch_ms(
-                        torch, lambda a, ne=ne: heap_kmin.k_smallest_sharded(
-                            a, k_size, ne, c_max=k_c), k_ring, k_in,
-                        hold=True)
+                        torch, lambda a, ne=cs.count(dev, ne):
+                        heap_kmin.k_smallest_sharded(a, k_size, ne,
+                                                     c_max=k_c),
+                        k_ring, k_in, hold=True)
             for mode, inp in m_in.items():
                 res[f"sorted_merge_{mode}_ms"] = cs._per_launch_ms(
                     torch, lambda o, inp=inp: merge(*inp, out=(o[0], o[1])),
