@@ -122,17 +122,19 @@ each printing a line:
    the bf16 kernel's edges (``ATTN_CASES``: GQA, causal and not, windows
    narrower than a tile, softcaps, ``q_offset``, ``kv_len < Skv``,
    ``hd_v != hd``, head dims 8 to 256, sequences one off each tile edge)
-   and at the three model shapes (Qwen2-0.5B's scoring, (4, 4,096, 14/2
+   and at the five model shapes (Qwen2-0.5B's scoring, (4, 4,096, 14/2
    heads, 64), causal; gemma2's, (2, 8,192, 8/4 heads, 256), window
    4,096, cap 50; RecurrentGemma's local layer, (1, 8,192, 10/1 heads,
-   256), window 2,048), each in f32 and in bf16, within the reference's
+   256), window 2,048; HuBERT's, (8, 1,500, 16/16 heads, 80),
+   non-causal; llama4's, (2, 4,096, 40/8 heads, 128), causal, a GQA
+   group of 5), each in f32 and in bf16, within the reference's
    tolerances (2e-5 f32, 2e-2 bf16; TF32 off) and in bf16 each output
-   row within 2^-6 of its norm (``ATTN_ROW_TOL``); then at the three shapes
+   row within 2^-6 of its norm (``ATTN_ROW_TOL``); then at the five shapes
    in bf16 the kernel's ms (the CUDA-event method above), the plain
    version's and the bound (the unmasked pairs' FLOP over 989 TFLOP/s
-   against q, k, v and o over 3.35 TB/s), and at the main shape SDPA's
-   (``is_causal``, ``enable_gqa``: the library yardstick, never called by
-   the port).
+   against q, k, v and o over 3.35 TB/s), and at Qwen2's, HuBERT's and
+   llama4's SDPA's (``is_causal`` as the shape, ``enable_gqa``: the
+   library yardstick, never called by the port).
 13. ``model`` — Qwen2-0.5B at full width (24 layers, 494 M parameters,
    random bf16 weights from ``--seed``): ``lm.loss_fn`` and
    ``model_apply(mode="train")`` with ``attention_impl="pallas"`` on
@@ -224,6 +226,35 @@ each printing a line:
    and 1 ``flash_attention`` launches a forward), serving 8 x (512 + 32),
    with the same checks.  The RG-LRU ``lam`` is redrawn so the recurrence
    carries state (:func:`slow_decay`).
+19. ``llama4`` — Llama-4-Scout at full width (d_model 5,120, 40/8 heads of
+   128, 16 experts top-1 of d_ff 8,192 and one shared expert, vocab
+   202,048), 2 of its 48 layers (5,438,694,400 parameters; all 48 would
+   be ~107 B): scoring 2 x 4,096 (2 ``flash_attention`` launches a
+   forward), serving 8 x (512 + 32), with the ``model`` phase's checks;
+   the MoE's routing is compared before the logits (:func:`moe_probe`,
+   :func:`scoring`, :func:`model_phase`): the f32 kernel path picks the
+   plain path's experts wherever the top-k margin exceeds 1e-6, and the
+   bf16 checks keep the positions routed and kept alike; serving is
+   timed at the config's capacity factor and checked at
+   ``capacity_factor = n_experts``.
+20. ``deepseek`` — DeepSeek-V2-Lite at full width (d_model 2,048, 16 MLA
+   heads: kv_lora 512, rope 64, nope 128, v 128; the dense first layer of
+   d_ff 10,944; 64 experts top-6 of d_ff 1,408 and two shared; vocab
+   102,400), the prefix and 7 MoE layers: scoring 4 x 4,096, serving as
+   ``llama4``; its forward launches no hand-written kernel (MLA attends
+   with the blockwise attention, as the reference), checked.
+21. ``vision`` — Llama-3.2-Vision at full width (d_model 4,096, 32/8
+   heads, d_ff 14,336, vocab 128,256), 2 periods (10 layers, 2 of them
+   cross-attention): scoring 2 x 4,096 tokens, each row with 1,601 seeded
+   image embeddings (8 ``flash_attention`` launches a forward); serving
+   8 x (512 + 32) through ``make_prefill`` with the image embeddings and
+   32 ``make_decode_step`` steps (:func:`serve_steps`).
+22. ``hubert`` — HuBERT-XLarge at full width and depth (48 layers,
+   d_model 1,280, 16 heads of 80, non-causal, GELU MLP of 5,120, vocab
+   504, the untied head): scoring 8 x 1,500 seeded frame embeddings (48
+   non-causal ``flash_attention`` launches a forward); encoder-only, no
+   serving.
+   ``python3 chip_smoke.py --families`` runs phases 2 and 19-22 alone.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -234,6 +265,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -2612,6 +2644,19 @@ GEMMA_LAYERS = 2
 GEMMA_SEQ = 8192               # past the 4,096 window
 GEMMA_BATCH = 2                # the attention phase's gemma2 shape
 RG_WINDOW = 2048               # configs/recurrentgemma_2b.py's local window
+LLAMA4_ARCH = "llama4_scout_17b_a16e"   # full width, 2 of its 48 layers
+LLAMA4_LAYERS = 2
+LLAMA4_BATCH = 2               # scoring: 2 x 4,096 tokens
+DEEPSEEK_ARCH = "deepseek_v2_lite_16b"  # full width: the prefix + 7 MoE
+DEEPSEEK_LAYERS = 8
+DEEPSEEK_BATCH = 4             # scoring: 4 x 4,096 tokens
+VISION_ARCH = "llama_3_2_vision_11b"    # full width, 2 periods of 5
+VISION_LAYERS = 10
+VISION_BATCH = 2               # scoring: 2 x 4,096 tokens
+HUBERT_ARCH = "hubert_xlarge"  # full width and depth (48 layers)
+HUBERT_BATCH = 8               # scoring: 8 x 1,500 frames (30 s at 20 ms)
+HUBERT_FRAMES = 1500
+EMBED_SCALE = 0.02             # frames, image embeddings: test_models.py:18-24
 LOGIT_TOL = 2e-2               # of max|y|, one layer in bf16 (see scoring)
 LOSS_TOL = 5e-3                # tests/test_models.py:164-165
 F32_LOGIT_TOL = 1e-4           # of max|logit|, f32 weights and activations
@@ -2663,17 +2708,19 @@ def _per_call_ms(torch, fn, n, windows, hold):
     return float(np.median(times))
 
 
-def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
+def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing,
+                    hubert_seq=HUBERT_FRAMES):
     """``flash_attention`` (the kernel on CUDA tensors) against
     ``flash_attention_plain`` with the kernel's own tiles, on every case of
-    the CPU tests and at the two model shapes, in f32 and in bf16, within
-    the reference's tolerances (atol = rtol = 2e-5 in f32, 2e-2 in bf16)
-    and, in bf16, each output row within ATTN_ROW_TOL of its norm.
-    TF32 is off for the plain version's f32 products.  Then, at the main
-    shape (Qwen2-0.5B's scoring forward, bf16): the kernel's ms, the plain
-    version's (the model's 128-wide tiles), SDPA's as the library yardstick
-    (never called by the port), and the bound; the kernel and plain ms at
-    gemma2's shape too (SDPA takes no softcap: no yardstick there)."""
+    the CPU tests and at the five model shapes (Qwen2-0.5B's, gemma2's,
+    RecurrentGemma's, HuBERT's, llama4's), in f32 and in bf16, within the
+    reference's tolerances (atol = rtol = 2e-5 in f32, 2e-2 in bf16) and,
+    in bf16, each output row within ATTN_ROW_TOL of its norm.  TF32 is off
+    for the plain version's f32 products.  Then, at each model shape in
+    bf16: the kernel's ms, the plain version's (the model's 128-wide
+    tiles) and the bound; SDPA's as the library yardstick (never called by
+    the port) at Qwen2's, HuBERT's and llama4's (SDPA takes no softcap or
+    window: no yardstick at gemma2's or RecurrentGemma's)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.ops import KERNEL_BLOCKS
@@ -2688,7 +2735,14 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
     # RecurrentGemma's local layer: 10 query heads, one KV head of 256
     rg = (1, gemma_seq, gemma_seq, 10, 1, 256, 256, True, RG_WINDOW, 0.0, 0,
           None)
-    shapes = {"main": main, "gemma": gemma, "rg": rg}
+    # HuBERT's self-attention: 16 heads of 80, non-causal, 1,500 frames (not
+    # a multiple of the tile); llama4's: a GQA group of 5 (40 / 8 heads)
+    hubert = (HUBERT_BATCH, hubert_seq, hubert_seq, 16, 16, 80, 80, False, 0,
+              0.0, 0, None)
+    llama4 = (LLAMA4_BATCH, main_seq, main_seq, 40, 8, 128, 128, True, 0,
+              0.0, 0, None)
+    shapes = {"main": main, "gemma": gemma, "rg": rg, "hubert": hubert,
+              "llama4": llama4}
     rec = {"checked": 0, "max_abs_err": 0.0,
            "max_abs_err_by_dtype": {"float32": 0.0, "bfloat16": 0.0},
            "max_row_err_bf16": 0.0}
@@ -2747,7 +2801,8 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
         return rec
     F = torch.nn.functional
     for which, n, n_plain in (("main", 30, 2), ("gemma", 10, 1),
-                              ("rg", 10, 1)):
+                              ("rg", 10, 1), ("hubert", 10, 1),
+                              ("llama4", 10, 1)):
         q, k, v, kw = kept[which]
         B, Sq, H, hd = q.shape
         _, Skv, K, hd_v = v.shape
@@ -2764,19 +2819,21 @@ def attention_phase(torch, dev, seed, main_seq, gemma_seq, timing):
         rec[pre + "bound_ms"], rec[pre + "bound_by"] = bound, by
         rec[pre + "flop"], rec[pre + "bytes"] = flop, nbytes
         rec[pre + "shape"] = [B, Sq, H, K, hd, kw["window"], kw["cap"]]
-        if which == "main":
+        if which in ("main", "hubert", "llama4"):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            causal = kw["causal"]
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=True)
             e = float((lib.transpose(1, 2).float()
                        - flash_attention(q, k, v, **kw).float()).abs().max())
             check(e <= ATTN_TOL["bfloat16"] * 4,
-                  f"SDPA yardstick disagrees with the kernel by {e}")
-            rec["library_ms"] = _per_call_ms(
+                  f"SDPA yardstick disagrees with the kernel by {e} at "
+                  f"{which}")
+            rec[pre + "library_ms"] = _per_call_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), n, 5,
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), n, 5,
                 hold=True)
-            rec["library_err"] = e
+            rec[pre + "library_err"] = e
     return rec
 
 
@@ -2824,23 +2881,39 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def _logit_err(got, want):
+def _logit_err(got, want, keep=None):
     """max|got − want| / max|want|, a batch row at a time (no full-size
-    temporaries); returns (that, max|want|)."""
+    temporaries), over the positions ``keep`` (B, S) marks (all without
+    it); returns (that, max|want|)."""
     err = scale = 0.0
     for b in range(want.shape[0]):
-        err = max(err, float((got[b].float() - want[b]).abs().max()))
-        scale = max(scale, float(want[b].abs().max()))
-    return err / scale, scale
+        e = (got[b].float() - want[b]).abs().amax(-1)
+        s = want[b].abs().amax(-1)
+        if keep is not None:
+            e, s = e[keep[b]], s[keep[b]]
+        if not e.numel():
+            continue
+        err = max(err, float(e.max()))
+        scale = max(scale, float(s.max()))
+    return (err / scale if scale else 0.0), scale
 
 
 def _upcast(tree):
-    """The parameter tree in f32 (bf16 → f32 is exact)."""
+    """The parameter tree (or a batch's embeddings) in f32 (bf16 → f32 is
+    exact); integer leaves as they are."""
     if isinstance(tree, dict):
         return {k: _upcast(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_upcast(v) for v in tree)
-    return tree.float()
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _f32_cfg(cfg):
+    """The config the f32 model runs under: the MoE's products with f32
+    accumulators (``moe_bf16_dispatch`` off), as the CPU tests hold them
+    (tests/test_torch_families.py): llama4's bf16 accumulators round the
+    expert outputs to bf16, which is not an f32 model."""
+    return cfg.with_(moe_bf16_dispatch=False) if cfg.moe else cfg
 
 
 @contextlib.contextmanager
@@ -2907,44 +2980,48 @@ def head_positions(cfg):
 
 def per_forward(cfg):
     """Hand-written kernel launches of one scoring forward: one
-    ``flash_attention`` an attention layer (``attention_impl="pallas"``),
-    one ``rwkv6_scan`` an RWKV-6 layer, one ``rglru_scan`` an RG-LRU
-    layer."""
-    kinds = [cfg.period[i % len(cfg.period)].mixer
-             for i in range(cfg.n_layers)]
-    return {"flash_attention": sum(k in ("full", "local") for k in kinds),
-            "rwkv6_scan": kinds.count("rwkv6"),
-            "rglru_scan": kinds.count("rglru")}
+    ``flash_attention`` a self-attention layer (``attention_impl=
+    "pallas"``; cross-attention and MLA attend outside the kernel, as in
+    the reference), one ``rwkv6_scan`` an RWKV-6 layer, one ``rglru_scan``
+    an RG-LRU layer."""
+    specs = cfg.layer_specs
+    return {"flash_attention": sum(s.mixer in ("full", "local")
+                                   and not s.cross_attn for s in specs),
+            "rwkv6_scan": sum(s.mixer == "rwkv6" for s in specs),
+            "rglru_scan": sum(s.mixer == "rglru" for s in specs)}
 
 
-def layer_check(torch, cfg, params, tokens):
+def layer_check(torch, cfg, params, batch):
     """Teacher-forced, layer by layer along the kernel path: each layer's
-    mixer output (attention, RWKV-6 time-mix or RG-LRU block) through the
-    kernel and through the plain path (the blockwise attention, the plain
-    scans) on the SAME bf16 input; returns the worst max|Δ| / max|y|."""
+    mixer output (attention, cross-attention, MLA, RWKV-6 time-mix or
+    RG-LRU block; deepseek's prefix first) through the kernel and through
+    the plain path (the blockwise attention, the plain scans) on the SAME
+    bf16 input; returns the worst max|Δ| / max|y|."""
     from repro_torch.models import transformer
-    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.layers import rmsnorm
 
     pallas = cfg.with_(attention_impl="pallas")
     plain = cfg.with_(attention_impl="xla_chunked")
-    x = embed(params["embed"], tokens)
-    if cfg.scale_embed:
-        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = transformer.embed_input(params, cfg, batch)
+    ctx = batch.get("image_embeds")
+    pos = torch.arange(x.shape[1], device=x.device)
     per = cfg.period
-    layers = [(transformer._index(params["stack"][j], i), per[j])
-              for i in range(cfg.n_full_periods) for j in range(len(per))]
+    layers = [(params["prefix"], transformer._prefix_spec(cfg))] \
+        if cfg.n_prefix else []
+    layers += [(transformer._index(params["stack"][j], i), per[j])
+               for i in range(cfg.n_full_periods) for j in range(len(per))]
     layers += [(params["rem"][j], per[j % len(per)])
                for j in range(cfg.n_remainder)]
     worst = 0.0
     for lp, lspec in layers:
         h = rmsnorm(lp["n1"], x)
         _, mixer = transformer._MIXERS[lspec.mixer]
-        ya = mixer(lp["mixer"], pallas, lspec, h, positions=pos)
+        ya = mixer(lp["mixer"], pallas, lspec, h, positions=pos, ctx=ctx)
         with plain_scans():
-            yb = mixer(lp["mixer"], plain, lspec, h, positions=pos)
+            yb = mixer(lp["mixer"], plain, lspec, h, positions=pos, ctx=ctx)
         worst = max(worst, _logit_err(ya, yb.float())[0])
-        x = transformer.block_apply(lp, pallas, lspec, x, positions=pos)
+        x = transformer.block_apply(lp, pallas, lspec, x, positions=pos,
+                                    ctx=ctx)
     return worst
 
 
@@ -3000,12 +3077,118 @@ def profile_once(torch, one, top=5):
                      if mine}}
 
 
-def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
+ROUTE_MARGIN = 1e-6            # top-k boundary margin a flip may sit under
+
+
+def n_moe(cfg):
+    """MoE FFN layers of one forward (deepseek's prefix is a GLU)."""
+    return sum(s.ffn == "moe" for s in cfg.layer_specs)
+
+
+@contextlib.contextmanager
+def moe_probe(torch):
+    """For the block's duration, record each MoE FFN call's routing (the
+    model's ``moe.route`` and ``moe.dispatch`` wrapped): the chosen experts
+    (G, T, K), the top-k boundary's margin (G, T) — the K-th largest
+    router probability minus the (K+1)-th — each pick's keep flag (G, T,
+    K), and the dropped and routed assignments.  Yields ``{"route":
+    [(top_e, margin), ...], "keep": [...], "drop": [(dropped, routed),
+    ...]}`` in call order (device tensors, no sync)."""
+    from repro_torch.models import moe
+
+    seen = {"route": [], "keep": [], "drop": []}
+    route, dispatch = moe.route, moe.dispatch
+
+    def probed_route(p, cfg, xt):
+        top_p, top_e = route(p, cfg, xt)
+        k = cfg.moe.top_k
+        srt = torch.sort(moe.router_probs(p, xt), dim=-1,
+                         descending=True).values
+        seen["route"].append((top_e, srt[..., k - 1] - srt[..., k]))
+        return top_p, top_e
+
+    def probed_dispatch(top_e, n_experts, C):
+        d = dispatch(top_e, n_experts, C)
+        kept = torch.empty_like(d["keep"])
+        kept.scatter_(-1, d["order"], d["keep"])     # back to (t, k) order
+        seen["keep"].append(kept.reshape(top_e.shape))
+        seen["drop"].append(((~d["keep"]).sum(), d["keep"].numel()))
+        return d
+
+    moe.route, moe.dispatch = probed_route, probed_dispatch
+    try:
+        yield seen
+    finally:
+        moe.route, moe.dispatch = route, dispatch
+
+
+def drop_share(seen, calls=None):
+    """The dropped share of the routed assignments of the recorded calls
+    (a slice of them with ``calls``)."""
+    d = seen["drop"] if calls is None else seen["drop"][calls]
+    return sum(int(n) for n, _ in d) / max(sum(m for _, m in d), 1)
+
+
+def routing(torch, seen, cfg, B):
+    """Per MoE layer, (experts (B, P, K), margins (B, P), keep flags (B, P,
+    K)) over the positions the recorded calls routed in order: a
+    forward's one call a layer, or a serving call's prefill and then each
+    decode step.  Each position's experts ascend (with their keep flags):
+    the dispatch reads the set of a token's picks, not their order by
+    probability, so two picks that swap ranks inside the top k are no
+    flip."""
+    L = n_moe(cfg)
+    K = cfg.moe.top_k
+
+    def cat(xs, tail):
+        return torch.cat([x.reshape(B, -1, *tail) for x in xs], 1)
+
+    out = []
+    for j in range(L):
+        e, at = cat([e for e, _ in seen["route"][j::L]], (K,)).sort(-1)
+        out.append((e, cat([m for _, m in seen["route"][j::L]], ()),
+                    cat(seen["keep"][j::L], (K,)).gather(-1, at)))
+    return out
+
+
+def route_compare(a, b):
+    """Two runs' :func:`routing` over the same positions: (differ, bad,
+    near, worst).  ``differ`` (B, P): routed to other experts, or kept and
+    dropped otherwise (one token's flip moves the capacity boundary of two
+    experts), in some layer; ``bad``: the first such layer picks other
+    experts at a top-k margin (the smaller of the two runs') of at least
+    ROUTE_MARGIN, a flip that rounding cannot explain; ``near``: some
+    layer's margin under ROUTE_MARGIN; ``worst``: the largest margin at
+    such a first flip (0.0 without one)."""
+    differ = bad = near = None
+    worst = 0.0
+    for (ea, ma, ka), (eb, mb, kb) in zip(a, b):
+        de = (ea != eb).any(-1)
+        d = de | (ka != kb).any(-1)
+        m = ma.minimum(mb)
+        flip = de if differ is None else de & ~differ
+        if bool(flip.any()):
+            worst = max(worst, float(m[flip].max()))
+        bad_l, near_l = flip & (m >= ROUTE_MARGIN), m < ROUTE_MARGIN
+        differ = d if differ is None else differ | d
+        bad = bad_l if bad is None else bad | bad_l
+        near = near_l if near is None else near | near_l
+    return differ, bad, near, worst
+
+
+def from_first(mask):
+    """(B, P) bool: each row's positions from its first True on (a token
+    routed otherwise reaches the later positions through attention)."""
+    return mask.int().cummax(dim=1).values.bool()
+
+
+def scoring(torch, dev, name, cfg, params, batch, counters):
     """The scoring forward through the kernels: ``lm.loss_fn`` once to
     warm up, then — every count zeroed just before — ``lm.loss_fn`` and
     ``model_apply(mode="train")`` with ``attention_impl="pallas"`` on bf16
-    weights, each with :func:`per_forward`'s launches.  Then the checks
-    (their launches outside the counted run):
+    weights over ``batch`` (tokens or frames, labels, image embeddings),
+    each with :func:`per_forward`'s launches.  Then the checks (their
+    launches outside the counted run):
 
     - the loss within LOSS_TOL of the plain path's (``"xla_chunked"``
       blockwise attention and the plain scans, :func:`plain_scans`, on the
@@ -3035,12 +3218,21 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
       paths sit ~0.76 of max|logit| off over the whole sequence (the group
       norm's flips at bf16 rounding, at its first tokens), so a check over
       every position held nothing there; the first positions' errors of
-      both paths are printed apart."""
+      both paths are printed apart.
+
+    With MoE layers the routing is compared before the logits
+    (:func:`moe_probe`): the f32 kernel path's chosen experts equal the
+    f32 plain path's token by token, except where the first layer that
+    differs has a top-k margin under ROUTE_MARGIN; such tokens (printed)
+    leave the f32 logit check.  A router flip is another expert, not
+    noise: the bf16 checks against the f32 forward keep only the
+    positions whose tokens both bf16 paths routed as the f32 forward in
+    every layer (the share left out is printed).  The f32 model runs the
+    MoE with f32 accumulators (:func:`_f32_cfg`)."""
     from repro_torch.models import lm, transformer
 
     pallas = cfg.with_(attention_impl="pallas")
     plain = cfg.with_(attention_impl="xla_chunked")
-    batch = {"tokens": tokens, "labels": labels}
     lm.loss_fn(params, pallas, batch)
     _sync(torch, dev)
 
@@ -3061,7 +3253,10 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
         for k, n in per_fwd.items():
             check(launches[k] == 2 * n, f"{name}: {launches[k]} {k} "
                   f"launches in two forwards, want {n} each")
-    B, S = tokens.shape
+        if not any(per_fwd.values()):
+            check(not any(launches.values()), f"{name}: a forward with no "
+                  f"kernel layer launched {_nonzero(launches)}")
+    B, S = batch["labels"].shape
     check(tuple(logits.shape) == (B, S, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           f"{name}: logits of shape {tuple(logits.shape)} not finite")
@@ -3074,37 +3269,67 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
     check(abs(loss - ref_loss) <= LOSS_TOL and math.isfinite(loss),
           f"{name}: loss {loss} vs the plain path's {ref_loss}")
     with decay_probe(torch) as decays:
-        layer_err = layer_check(torch, cfg, params, tokens)
+        layer_err = layer_check(torch, cfg, params, batch)
     check(layer_err <= LOGIT_TOL, f"{name}: a layer's mixer output "
           f"differs from the plain path's by {layer_err:.3e} of max|y| "
           f"(limit {LOGIT_TOL})")
-    p32 = _upcast(params)
-    with plain_scans():
+    p32, b32, c32 = _upcast(params), _upcast(batch), _f32_cfg(cfg)
+    pallas32 = c32.with_(attention_impl="pallas")
+    plain32 = c32.with_(attention_impl="xla_chunked")
+    moe = n_moe(cfg) > 0
+    with moe_probe(torch) as r_k16:
+        if moe:
+            transformer.model_apply(params, pallas, batch)
+    with plain_scans(), moe_probe(torch) as r_p16:
         ref, _ = transformer.model_apply(params, plain, batch)
-        truth, _ = transformer.model_apply(p32, plain, batch)
+    with plain_scans(), moe_probe(torch) as r_t32:
+        truth, _ = transformer.model_apply(p32, plain32, b32)
     head = head_positions(cfg)
+    route = {}
+    alike = None
+    if moe:
+        t32 = routing(torch, r_t32, cfg, B)
+        d_k16 = route_compare(routing(torch, r_k16, cfg, B), t32)[0]
+        d_p16 = route_compare(routing(torch, r_p16, cfg, B), t32)[0]
+        alike = ~(d_k16 | d_p16)[:, head:]
+        route.update(bf16_flipped=int(d_k16.sum()),
+                     bf16_excluded=1.0 - float(alike.float().mean()),
+                     drop=drop_share(r_k16), tokens=B * S)
     bf16_vs_plain, scale = _logit_err(logits, ref)
-    kernel_noise = _logit_err(logits[:, head:], truth[:, head:])[0]
-    plain_noise = _logit_err(ref[:, head:], truth[:, head:])[0]
+    kernel_noise = _logit_err(logits[:, head:], truth[:, head:], alike)[0]
+    plain_noise = _logit_err(ref[:, head:], truth[:, head:], alike)[0]
     head_bf16 = None
     if head:            # (kernel path, plain path) at the first positions
         head_bf16 = (_logit_err(logits[:, :head], truth[:, :head])[0],
                      _logit_err(ref[:, :head], truth[:, :head])[0])
     del ref, logits
-    got32, _ = transformer.model_apply(p32, pallas, batch)
-    f32_err = _logit_err(got32[:, head:], truth[:, head:])[0]
+    with moe_probe(torch) as r_k32:
+        got32, _ = transformer.model_apply(p32, pallas32, b32)
+    keep32 = None
+    if moe:
+        differ, bad, near, worst = route_compare(
+            routing(torch, r_k32, cfg, B), routing(torch, r_t32, cfg, B))
+        check(not bool(bad.any()), f"{name}: f32 kernel path routed "
+              f"{int(bad.sum())} tokens to other experts than the plain "
+              f"path at a top-k margin of at least {ROUTE_MARGIN} (the "
+              f"largest {worst:.3e})")
+        keep32 = ~from_first(differ)[:, head:]
+        route.update(f32_near=int(near.sum()), f32_flipped=int(differ.sum()),
+                     f32_left_out=int((~keep32).sum()))
+    del r_k16, r_p16, r_t32, r_k32
+    f32_err = _logit_err(got32[:, head:], truth[:, head:], keep32)[0]
     head_err = head_noise = head_tol = f32_noise = None
     if head:
         head_err = _logit_err(got32[:, :head], truth[:, :head])[0]
     del got32
     if head:
         with plain_scans(exact=True):
-            alt, _ = transformer.model_apply(p32, plain, batch)
+            alt, _ = transformer.model_apply(p32, plain32, b32)
         f32_noise = _logit_err(alt[:, head:], truth[:, head:])[0]
         head_noise = _logit_err(alt[:, :head], truth[:, :head])[0]
         head_tol = max(F32_LOGIT_TOL, NOISE_RATIO * head_noise)
         del alt
-    del truth, p32
+    del truth, p32, b32
     check(f32_err <= F32_LOGIT_TOL, f"{name}: f32 kernel-path logits at "
           f"positions {head}.. differ from the plain path's by "
           f"{f32_err:.3e} of max|logit| (limit {F32_LOGIT_TOL:.0e}; the two "
@@ -3127,19 +3352,26 @@ def scoring(torch, dev, name, cfg, params, tokens, labels, counters):
             "kernel_noise": kernel_noise, "plain_noise": plain_noise,
             "max_logit": scale, "loss_s": t_loss, "forward_s": t_fwd,
             "profile": prof, "decay_chunk_max": decays["max"],
-            "tokens_per_s": B * S / t_loss}
+            "routing": route, "tokens_per_s": B * S / t_loss}
 
 
-def _step_err_list(steps, fwd, first):
+def _step_err_list(steps, fwd, first, keep=None):
     """max|step − fwd[:, pos]| / max|fwd[:, pos]| of each kept step's
-    logits, step t at position first + t."""
-    return [_logit_err(s[:, None], fwd[:, first + t][:, None])[0]
-            for t, s in enumerate(steps)]
+    logits, step t at position first + t, over the batch rows ``keep``
+    (B, P) marks at that position (a step with none kept is skipped)."""
+    errs = []
+    for t, s in enumerate(steps):
+        rows = None if keep is None else keep[:, first + t][:, None]
+        if rows is not None and not bool(rows.any()):
+            continue
+        errs.append(_logit_err(s[:, None], fwd[:, first + t][:, None],
+                               rows)[0])
+    return errs
 
 
-def _step_errs(steps, fwd, first):
+def _step_errs(steps, fwd, first, keep=None):
     """The worst of :func:`_step_err_list`."""
-    return max(_step_err_list(steps, fwd, first))
+    return max(_step_err_list(steps, fwd, first, keep))
 
 
 def per_serve(cfg, new):
@@ -3153,15 +3385,40 @@ def per_serve(cfg, new):
             "rglru_scan": n["rglru_scan"]}
 
 
-def serve(torch, dev, cfg, params, prompts, new, cache_dtype, counters,
-          name):
-    """``DecodeExecutor`` on ``prompts`` (one request each, ``new`` tokens
-    a request): a warm-up call, a timed prefill-only call (0 new tokens),
-    then the timed full call, which keeps every step's logits; that call's
+def _served(torch, dev, cfg, call, n, new, counters, name, timed):
+    """Drive a serving ``call(n_tokens) -> (tokens (n, n_tokens), every
+    step's logits, seconds)``: with ``timed``, a warm-up call and a timed
+    prefill-only call (0 new tokens) first; then the full call, whose
     kernel launches are counted (every count zeroed just before) and held
-    to :func:`per_serve` on the card."""
+    to :func:`per_serve` on the card.  Returns (tokens, step logits,
+    prefill s, serving s, launches)."""
+    t_prefill = None
+    if timed:
+        call(2)
+        t_prefill = call(0)[2]
+    want = per_serve(cfg, new)
+    (gen, kept, t_serve), launches = counted(
+        torch, dev, name, counters, [k for k, m in want.items() if m],
+        lambda: call(new))
+    if dev.type == "cuda":
+        for k, m in want.items():
+            check(launches[k] == m, f"{name}: {launches[k]} {k} launches "
+                  f"in a serving call, want {m}")
+    check(gen.shape == (n, new) and len(kept) == new + 1,
+          f"serving: tokens {gen.shape}, {len(kept)} steps kept")
+    return gen, kept, t_prefill, t_serve, launches
+
+
+def serve(torch, dev, cfg, params, prompts, new, cache_dtype, counters,
+          name, extra=None, timed=True):
+    """``DecodeExecutor`` on ``prompts`` (one request each, ``new`` tokens
+    a request), every step's logits kept, through :func:`_served`.  The
+    executor feeds tokens only, as the reference's: ``extra`` must be
+    empty.  Returns (tokens, prompts + tokens on the device, step logits,
+    prefill s, serving s, device steps of the full call, launches)."""
     from repro_torch.launch.serve import DecodeExecutor
 
+    check(not extra, "DecodeExecutor feeds tokens only")
     n, prompt = prompts.shape
     ex = DecodeExecutor(cfg.with_(attention_impl="pallas"), max_batch=n,
                         max_len=prompt + new, params=params, device=dev,
@@ -3172,37 +3429,100 @@ def serve(torch, dev, cfg, params, prompts, new, cache_dtype, counters,
         t0 = time.perf_counter()
         out = ex([{"prompt": p, "n_tokens": n_tokens} for p in prompts])
         _sync(torch, dev)
-        return out, time.perf_counter() - t0
+        return np.stack(out), ex.step_logits, time.perf_counter() - t0
 
-    call(2)
-    _, t_prefill = call(0)
-    want = per_serve(cfg, new)
-    (out, t_serve), launches = counted(
-        torch, dev, name, counters, [k for k, m in want.items() if m],
-        lambda: call(new))
-    if dev.type == "cuda":
-        for k, m in want.items():
-            check(launches[k] == m, f"{name}: {launches[k]} {k} launches "
-                  f"in a serving call, want {m}")
-    gen = np.stack(out)
-    check(gen.shape == (n, new) and len(ex.step_logits) == new + 1,
-          f"serving: tokens {gen.shape}, {len(ex.step_logits)} steps kept")
+    gen, kept, t_prefill, t_serve, launches = _served(
+        torch, dev, cfg, call, n, new, counters, name, timed)
     full = torch.from_numpy(np.concatenate([prompts, gen], 1)).to(dev)
-    return (gen, full, ex.step_logits, t_prefill, t_serve, ex.device_steps,
-            launches)
+    return gen, full, kept, t_prefill, t_serve, 1 + new, launches
+
+
+def serve_steps(torch, dev, cfg, params, prompts, new, cache_dtype,
+                counters, name, extra=None, timed=True):
+    """:func:`serve`'s contract through ``lm.make_prefill`` and
+    ``lm.make_decode_step`` directly, for a model whose prefill takes more
+    than tokens (the VLM's ``image_embeds`` in ``extra``), which the
+    reference's executor cannot pass: one prefill of every prompt with
+    ``extra``, then ``new`` greedy decode steps against the cache."""
+    from repro_torch.models import lm, transformer
+
+    n, prompt = prompts.shape
+    pc = cfg.with_(attention_impl="pallas", decode_cache_len=prompt + new)
+    prefill, decode = lm.make_prefill(pc), lm.make_decode_step(pc)
+    tokens = torch.from_numpy(prompts).to(dev)
+
+    def call(n_tokens):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        cache = transformer.init_cache(pc, n, prompt + new,
+                                       dtype=cache_dtype, device=dev)
+        logits, cache = prefill(params, {"tokens": tokens, **(extra or {})},
+                                cache)
+        kept = [logits]
+        last = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        gen = []
+        for t in range(n_tokens):
+            gen.append(last[:, 0])
+            nxt, step, cache = decode(params, cache, prompt + t, last)
+            kept.append(step)
+            last = nxt[:, None]
+        out = (torch.stack(gen, 1).cpu().numpy() if gen else
+               np.zeros((n, 0), np.int32))
+        _sync(torch, dev)
+        return out, kept, time.perf_counter() - t0
+
+    gen, kept, t_prefill, t_serve, launches = _served(
+        torch, dev, cfg, call, n, new, counters, name, timed)
+    full = torch.from_numpy(np.concatenate([prompts, gen], 1)).to(dev)
+    return gen, full, kept, t_prefill, t_serve, 1 + new, launches
+
+
+def _embeds(torch, dev, rng, shape):
+    """Seeded stand-in embeddings (HuBERT's frames, the VLM's image
+    patches): N(0, 1) × EMBED_SCALE in bf16, as tests/test_models.py:18-24
+    makes them."""
+    return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(dev) * EMBED_SCALE).to(torch.bfloat16)
+
+
+def model_inputs(torch, dev, cfg, rng, batch, seq):
+    """A scoring batch of ``batch`` x ``seq``: tokens (frames for the
+    audio frontend), labels, and the VLM's image embeddings, from
+    ``rng``."""
+    out = {}
+    if cfg.audio_frontend:
+        out["labels"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (batch, seq), dtype=np.int64)).to(dev)
+        out["frames"] = _embeds(torch, dev, rng, (batch, seq, cfg.d_model))
+    else:
+        for k in ("tokens", "labels"):
+            out[k] = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (batch, seq), dtype=np.int64)).to(dev)
+    if cfg.n_img_tokens:
+        out["image_embeds"] = _embeds(torch, dev, rng,
+                                      (batch, cfg.n_img_tokens, cfg.d_model))
+    return out
+
+
+def _with_capacity(cfg, factor):
+    return cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                             capacity_factor=factor))
 
 
 def model_phase(torch, dev, seed, counters, reduced=False,
                 batch=MODEL_BATCH, seq=MODEL_SEQ, serve_batch=SERVE_BATCH,
                 prompt=SERVE_PROMPT, new=SERVE_NEW, *, name="model",
                 arch=MODEL_ARCH, n_layers=None, tag=14, prepare=None,
-                keep=False):
-    """A decoder LM at full width (Qwen2-0.5B's 24 layers unless ``arch``
+                keep=False, serving="executor"):
+    """A model at full width (Qwen2-0.5B's 24 layers unless ``arch``
     and ``n_layers`` say otherwise), random bf16 weights from ``seed``
     (then ``prepare(params)``, if given): the scoring forward
-    (:func:`scoring`) on batch x seq tokens, then
-    ``DecodeExecutor(max_batch=serve_batch)`` answering serve_batch
-    requests of ``prompt`` tokens and ``new`` new ones (:func:`serve`):
+    (:func:`scoring`) on batch x seq tokens (or frames, with the VLM's
+    image embeddings), then, unless ``serving`` is None, serve_batch
+    requests of ``prompt`` tokens and ``new`` new ones through
+    ``DecodeExecutor(max_batch=serve_batch)`` (:func:`serve`; ``serving=
+    "steps"``: ``make_prefill`` with the image embeddings and
+    ``make_decode_step``, :func:`serve_steps`):
 
     - in bf16 (timed): every step's next-token logits (prefill's, then each
       decode step's) against the f32 forward over the same tokens at the
@@ -3213,16 +3533,25 @@ def model_phase(torch, dev, seed, counters, reduced=False,
       F32_LOGIT_TOL of max|logit| of the f32 kernel-path forward, and every
       greedy token equal to its argmax wherever its top-2 margin exceeds
       that tolerance.  This is the check that the state handed from
-      prefill to decode (K/V, the recurrent states, the conv and
-      token-shift histories) is right.  With RWKV-6 layers the limit is
-      the larger of F32_LOGIT_TOL and NOISE_RATIO times the plain path's
-      own distance, the f32 decode steps through the plain scans against
-      the plain f32 forward over their tokens: the 32-layer random model
-      turns the GEMMs' shape-dependent roundings (8 rows a decode step
-      against 4,352 in the forward) into ~1e-4 of max|logit| at every
-      position, the plain path's own steps included (see :func:`scoring`;
-      both paths' medians and the steps over F32_LOGIT_TOL are
-      printed).
+      prefill to decode (K/V, MLA's latents, the image K/V, the recurrent
+      states, the conv and token-shift histories) is right.  With RWKV-6
+      layers the limit is the larger of F32_LOGIT_TOL and NOISE_RATIO times
+      the plain path's own distance, the f32 decode steps through the
+      plain scans against the plain f32 forward over their tokens: the
+      32-layer random model turns the GEMMs' shape-dependent roundings (8
+      rows a decode step against 4,352 in the forward) into ~1e-4 of
+      max|logit| at every position, the plain path's own steps included
+      (see :func:`scoring`; both paths' medians and the steps over
+      F32_LOGIT_TOL are printed).
+
+    With MoE layers the bf16 serving is timed at the config's capacity
+    factor, and the drop share of one decode step there printed (8
+    tokens: llama4's C is 1, so decode drops what the forward keeps, the
+    reference's GShard semantics); the checks above run at
+    ``capacity_factor = n_experts`` (no drops, as the reference's own test,
+    tests/test_models.py:97-99), on the positions whose tokens routed
+    alike in the compared runs (:func:`moe_probe`; f32 flips only under
+    ROUTE_MARGIN, as in :func:`scoring`).
 
     With ``keep`` the bf16 weights and the config stay in the returned
     stats under ``"keep"``, for the ``serve`` phase."""
@@ -3236,29 +3565,65 @@ def model_phase(torch, dev, seed, counters, reduced=False,
     if prepare is not None:
         prepare(torch, params, seed)
     n_params = transformer.count_params(params)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
-                                           dtype=np.int64)).to(dev)
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
-                                           dtype=np.int64)).to(dev)
-    s = scoring(torch, dev, name, cfg, params, tokens, labels, counters)
-    del tokens, labels
+    inputs = model_inputs(torch, dev, cfg, rng, batch, seq)
+    s = scoring(torch, dev, name, cfg, params, inputs, counters)
+    del inputs
     s["params"] = n_params
+    if serving is None:
+        return s
 
-    pallas = cfg.with_(attention_impl="pallas")
+    moe = n_moe(cfg) > 0
+    run = serve if serving == "executor" else serve_steps
     prompts = rng.integers(0, cfg.vocab, (serve_batch, prompt),
                            dtype=np.int64).astype(np.int32)
-    gen, full, steps, t_prefill, t_serve, n_steps, served = serve(
+    extra = {}
+    if cfg.n_img_tokens:
+        extra["image_embeds"] = _embeds(
+            torch, dev, rng, (serve_batch, cfg.n_img_tokens, cfg.d_model))
+    gen, full, steps, t_prefill, t_serve, n_steps, served = run(
         torch, dev, cfg, params, prompts, new, torch.bfloat16, counters,
-        name)
+        name, extra)
     s["serve_launches"] = served
     s["launches"] = {k: n + served[k] for k, n in s["launches"].items()}
-    fwd, _ = transformer.model_apply(params, pallas, {"tokens": full})
-    p32 = _upcast(params)
-    truth, _ = transformer.model_apply(p32, pallas, {"tokens": full})
+    chk = cfg
+    if moe:
+        ex = DecodeExecutor(cfg.with_(attention_impl="pallas"),
+                            max_batch=serve_batch, max_len=prompt + 1,
+                            params=params, device=dev)
+        with moe_probe(torch) as seen:
+            ex([{"prompt": q, "n_tokens": 1} for q in prompts])
+        L = n_moe(cfg)
+        s["routing"].update(decode_drop=drop_share(seen, slice(L, 2 * L)),
+                            decode_tokens=serve_batch)
+        del ex, seen
+        # the checks: no capacity drops, so decode and forward agree
+        chk = _with_capacity(cfg, float(cfg.moe.n_experts))
+        with moe_probe(torch) as r_s16:
+            gen, full, steps = run(torch, dev, chk, params, prompts, new,
+                                   torch.bfloat16, counters, name, extra,
+                                   timed=False)[:3]
+    pallas = chk.with_(attention_impl="pallas")
+    c32 = _f32_cfg(chk).with_(attention_impl="pallas")
+    p32, x32 = _upcast(params), _upcast(extra)
+    B = serve_batch
+    with moe_probe(torch) as r_f16:
+        fwd, _ = transformer.model_apply(params, pallas,
+                                         {"tokens": full, **extra})
+    with moe_probe(torch) as r_t32:
+        truth, _ = transformer.model_apply(p32, c32, {"tokens": full, **x32})
+    alike = None
+    if moe:
+        t32 = routing(torch, r_t32, cfg, B)
+        alike = ~(route_compare(routing(torch, r_s16, cfg, B), t32)[0]
+                  | route_compare(routing(torch, r_f16, cfg, B), t32)[0])
+        s["routing"]["serve_bf16_excluded"] = int((~alike).sum())
+        del r_s16
+    del r_f16, r_t32
     drift = _step_errs(steps, fwd, prompt - 1)
-    step_noise = _step_errs(steps, truth, prompt - 1)
+    step_noise = _step_errs(steps, truth, prompt - 1, alike)
     fwd_noise = _step_errs([fwd[:, prompt - 1 + t]
-                            for t in range(new + 1)], truth, prompt - 1)
+                            for t in range(new + 1)], truth, prompt - 1,
+                           alike)
     agree = int((gen == fwd[:, prompt - 1:prompt - 1 + new].argmax(-1)
                  .cpu().numpy()).sum())
     del fwd, truth, steps
@@ -3266,10 +3631,28 @@ def model_phase(torch, dev, seed, counters, reduced=False,
           f"serving: bf16 step logits {step_noise:.3e} off the f32 "
           f"forward, {NOISE_RATIO}x the bf16 forward's {fwd_noise:.3e}")
 
-    gen32, full32, steps32 = serve(torch, dev, cfg, p32, prompts, new,
-                                   torch.float32, counters, name)[:3]
-    fwd32, _ = transformer.model_apply(p32, pallas, {"tokens": full32})
-    errs32 = _step_err_list(steps32, fwd32, prompt - 1)
+    with moe_probe(torch) as r_s32:
+        gen32, full32, steps32 = run(torch, dev, _f32_cfg(chk), p32,
+                                     prompts, new, torch.float32, counters,
+                                     name, x32, timed=False)[:3]
+    with moe_probe(torch) as r_f32:
+        fwd32, _ = transformer.model_apply(p32, c32,
+                                           {"tokens": full32, **x32})
+    keep32 = None
+    if moe:
+        differ, bad, near, worst = route_compare(
+            routing(torch, r_s32, cfg, B), routing(torch, r_f32, cfg, B))
+        check(not bool(bad.any()), f"serving f32: {int(bad.sum())} decode "
+              f"tokens routed to other experts than the forward's at a "
+              f"top-k margin of at least {ROUTE_MARGIN} (the largest "
+              f"{worst:.3e})")
+        keep32 = ~from_first(differ)
+        s["routing"].update(serve_f32_near=int(near.sum()),
+                            serve_f32_flipped=int(differ.sum()),
+                            serve_f32_worst=worst,
+                            serve_f32_left_out=int((~keep32).sum()))
+    del r_s32, r_f32
+    errs32 = _step_err_list(steps32, fwd32, prompt - 1, keep32)
     err32, med32 = max(errs32), float(np.median(errs32))
     noise32, med_noise32, tol32 = None, None, F32_LOGIT_TOL
     if per_forward(cfg)["rwkv6_scan"]:
@@ -3297,14 +3680,17 @@ def model_phase(torch, dev, seed, counters, reduced=False,
         want = fwd32[:, prompt - 1 + t]
         top2 = torch.topk(want, 2, dim=-1).values
         clear = ((top2[:, 0] - top2[:, 1])
-                 > tol32 * float(want.abs().max())).cpu().numpy()
+                 > tol32 * float(want.abs().max()))
+        if keep32 is not None:
+            clear = clear & keep32[:, prompt - 1 + t]
+        clear = clear.cpu().numpy()
         am = want.argmax(-1).cpu().numpy()
         bad = clear & (gen32[:, t] != am)
         check(not bad.any(), f"serving f32: step {t} greedy tokens "
               f"{gen32[bad, t]} are not the forward's argmax {am[bad]}")
         checked += int(clear.sum())
         tied += int((~clear).sum())
-    del fwd32, steps32, p32
+    del fwd32, steps32, p32, x32
     s.update({
         "serve_s": t_serve, "prefill_s": t_prefill,
         "decode_tokens_per_s": serve_batch * new / (t_serve - t_prefill),
@@ -3872,11 +4258,8 @@ def gemma2_phase(torch, dev, seed, counters, reduced=False, seq=GEMMA_SEQ):
     cfg = _model_cfg(GEMMA_ARCH, reduced, n_layers=GEMMA_LAYERS)
     rng = np.random.default_rng([seed, 15])
     params = transformer.model_init(seed, cfg, device=dev)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
-                                           dtype=np.int64)).to(dev)
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq),
-                                           dtype=np.int64)).to(dev)
-    s = scoring(torch, dev, "gemma2", cfg, params, tokens, labels, counters)
+    s = scoring(torch, dev, "gemma2", cfg, params,
+                model_inputs(torch, dev, cfg, rng, 1, seq), counters)
     check(s["max_logit"] <= cfg.logit_softcap + 1e-3,
           "gemma2: logits past the final softcap")
     s["params"] = transformer.count_params(params)
@@ -4383,6 +4766,132 @@ def profile_passes(seed=0, n_keys=N_KEYS, n_passes=300, width=4,
                  "one update + three reads of the bench mix", out)
 
 
+def model_runner(torch, dev, seed, counters, results, *, reduced,
+                 serve_batch, serve_prompt, serve_new, out=print):
+    """``lm(key, phase, **kw)``: run one model phase with a fresh peak
+    memory count, keep its stats in ``results[key]`` and print its lines
+    (scoring, serving, routing, the profiled forward)."""
+
+    def lm(key, phase, **kw):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = phase(torch, dev, seed, counters, reduced=reduced, **kw)
+        if dev.type == "cuda":
+            s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        s["seconds"] = time.perf_counter() - t0
+        results[key] = s
+        extra = "" if "serve_s" not in s else (
+            f"; serving: {serve_batch} requests x {serve_prompt}-token "
+            f"prompts + {serve_new} new tokens in {s['serve_s']:.3f} s "
+            f"(prefill alone {s['prefill_s']:.3f} s, "
+            f"{s['prefill_tokens_per_s']:.1f} prompt tokens/s; decode "
+            f"{s['decode_tokens_per_s']:.1f} tokens/s), "
+            f"kernel launches in the counted call of "
+            f"{s['device_steps']} device steps "
+            f"{_nonzero(s['serve_launches'])}; bf16 step "
+            f"logits {s['step_drift']:.3e} of max|logit| off the bf16 "
+            f"kernel-path forward ({s['greedy_agree']}/"
+            f"{serve_batch * serve_new} greedy tokens its argmax), "
+            f"{s['step_noise']:.3e} off the f32 forward (the bf16 forward: "
+            f"{s['fwd_noise']:.3e}); f32 step logits within "
+            f"{s['step_err_f32']:.3e} of the f32 kernel-path forward "
+            f"(median {s['step_median_f32']:.3e}, {s['step_over_f32']}/"
+            f"{serve_new + 1} steps over {F32_LOGIT_TOL:.0e}; limit "
+            f"{s['step_tol_f32']:.3e}; the plain path's own "
+            f"{s['step_noise_f32']}, median "
+            f"{s['step_noise_median_f32']}), "
+            f"{s['greedy_checked']} greedy tokens its argmax "
+            f"({s['greedy_near_ties']} near-ties not held)")
+        per_fwd = (_nonzero(s["per_forward"]) or "none: no hand-written "
+                   "kernel launched, checked")
+        out(f"{key}: {s['params']} params; scoring {s['tokens_per_s']:.1f} "
+            f"tokens/s (loss_fn {s['loss_s']:.3f} s, model_apply "
+            f"{s['forward_s']:.3f} s), kernel launches "
+            f"{_nonzero(s['launches'])} (per forward {per_fwd}), loss "
+            f"{s['loss']:.6f} vs plain "
+            f"path {s['plain_loss']:.6f}; layer mixer outputs within "
+            f"{s['layer_err']:.3e} of the plain path's; f32 logits within "
+            f"{s['f32_err']:.3e} of max|logit| at positions {s['head']}.. "
+            f"(limit {F32_LOGIT_TOL:.0e}; the two plain f32 paths "
+            f"{s['f32_noise']})" + ("" if not s["head"] else
+            f", {s['head_err']:.3e} at positions 0-{s['head'] - 1} (limit "
+            f"{s['head_tol']:.3e}; the two plain f32 paths "
+            f"{s['head_noise']:.3e})") + f"; bf16 logits "
+            f"{s['bf16_vs_plain']:.3e} of max|logit| {s['max_logit']:.3f} "
+            f"off the plain path's, {s['kernel_noise']:.3e} off the f32 "
+            f"forward at positions {s['head']}.. (plain path "
+            f"{s['plain_noise']:.3e}, limit {NOISE_RATIO}x)" + (
+                "" if not s["head"] else
+                f", at positions 0-{s['head'] - 1} {s['head_bf16'][0]:.3e} "
+                f"(plain path {s['head_bf16'][1]:.3e}; not held)")
+            + ("" if s["decay_chunk_max"] is None else
+               f"; the layers' scans saw sum |log w| up to "
+               f"{s['decay_chunk_max']:.3f} over a 64-token chunk (the "
+               f"reference's chunked form holds below ~80)")
+            + f"{extra}{routing_line(s['routing'])}; "
+            f"max_memory_allocated {s.get('max_memory_allocated', 'n/a')} "
+            f"({s['seconds']:.1f} s)")
+        pr = s["profile"]
+        if pr:
+            out(f"{key}: one bf16 model_apply under the profiler: "
+                f"{pr['wall_ms']:.3f} ms wall, {pr['device_ms']:.3f} ms of "
+                f"device time (busy share {pr['busy_share']:.4f}), "
+                f"{pr['launches']} kernel launches; busiest: " + "; ".join(
+                    f"{k} {ms:.3f} ms x {n}" for k, ms, n in pr["top"])
+                + "; hand-written: " + ("; ".join(
+                    f"{k} {ms:.3f} ms x {n} ({ms / n:.4f} a launch)"
+                    for k, (ms, n) in pr["ours"].items()) or "none"))
+
+    return lm
+
+
+def routing_line(r):
+    """The MoE phases' routing numbers (:func:`scoring`, :func:`model_phase`)
+    for the phase line; empty without MoE layers."""
+    if not r:
+        return ""
+    line = (f"; routing: scoring forward dropped {r['drop']:.4f} of its "
+            f"assignments at the config's capacity factor; f32 kernel path "
+            f"vs plain path: {r['f32_flipped']} of {r['tokens']} tokens "
+            f"routed or kept differently, {r['f32_near']} under the "
+            f"{ROUTE_MARGIN} margin (every flip is under it), "
+            f"{r['f32_left_out']} positions from a flip on left out of the "
+            f"f32 check; bf16 kernel path vs the f32 forward: "
+            f"{r['bf16_flipped']} tokens routed or kept differently, "
+            f"{r['bf16_excluded']:.4f} of the positions (either bf16 path) "
+            f"left out of the bf16 check")
+    if "decode_drop" in r:
+        line += (f"; one decode step ({r['decode_tokens']} tokens) dropped "
+                 f"{r['decode_drop']:.4f} at the config's factor; serving "
+                 f"checks at capacity_factor = n_experts: "
+                 f"{r['serve_bf16_excluded']} bf16 positions routed unlike "
+                 f"the f32 forward left out, f32 decode vs forward "
+                 f"{r['serve_f32_flipped']} routed or kept differently (the "
+                 f"largest margin at a flip {r['serve_f32_worst']:.3e}), "
+                 f"{r['serve_f32_near']} under the margin, "
+                 f"{r['serve_f32_left_out']} positions from a flip on left "
+                 f"out of the f32 step check")
+    return line
+
+
+def family_phases(lm, seq, hubert_frames, serving):
+    """Phases 19-22: llama4 (MoE), deepseek (MLA, the dense first layer,
+    MoE top-6), the VLM (cross-attention) and HuBERT (the audio frontend),
+    each at full width and the depth of its constants."""
+    lm("llama4", model_phase, batch=LLAMA4_BATCH, seq=seq, name="llama4",
+       arch=LLAMA4_ARCH, n_layers=LLAMA4_LAYERS, tag=19, **serving)
+    lm("deepseek", model_phase, batch=DEEPSEEK_BATCH, seq=seq,
+       name="deepseek", arch=DEEPSEEK_ARCH, n_layers=DEEPSEEK_LAYERS,
+       tag=20, **serving)
+    lm("vision", model_phase, batch=VISION_BATCH, seq=seq, name="vision",
+       arch=VISION_ARCH, n_layers=VISION_LAYERS, tag=21, serving="steps",
+       **serving)
+    lm("hubert", model_phase, batch=HUBERT_BATCH, seq=hubert_frames,
+       name="hubert", arch=HUBERT_ARCH, tag=22, serving=None)
+
+
 def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES,
         n_cases=KERNEL_CASES,
@@ -4395,7 +4904,7 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         rwkv_shapes=RWKV_SHAPES, rglru_shapes=RGLRU_SHAPES,
         rwkv_batch=RWKV_BATCH, rwkv_seq=RWKV_SEQ, rg_seq=RG_SEQ,
         struct_per=STRUCT_PER_SESSION, n_mega_lists=MEGA_LISTS, timing=True,
-        out=print):
+        hubert_frames=HUBERT_FRAMES, out=print):
     """Phases 2–18; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
@@ -4559,13 +5068,14 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s['replayed']}-batch kernel==plain replay ok in "
             f"{s['replay_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    fa = attention_phase(torch, dev, seed, attn_seq, gemma_seq, timing)
+    fa = attention_phase(torch, dev, seed, attn_seq, gemma_seq, timing,
+                         hubert_frames)
     checked.calls["flash_attention"] = fa["checked"]
     checked.max_abs_err["flash_attention"] = fa["max_abs_err"]
     if timing:
         times["flash_attention"] = fa
     out(f"kernels: flash_attention == plain on {fa['checked']} launches "
-        f"({len(ATTN_CASES) + 3} cases x f32, bf16; max_abs_err "
+        f"({len(ATTN_CASES) + 5} cases x f32, bf16; max_abs_err "
         f"{fa['max_abs_err_by_dtype']['float32']} f32, "
         f"{fa['max_abs_err_by_dtype']['bfloat16']} bf16; tolerance atol = "
         f"rtol = 2e-5 f32, 2e-2 bf16; bf16 rows' relative norm error "
@@ -4581,81 +5091,21 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                f"{label} {fa[p + 'shape']}: ms {fa[p + 'ms']:.6f}, plain_ms "
                f"{fa[p + 'plain_ms']:.6f}, bound_ms "
                f"{fa[p + 'bound_ms']:.6f} ({fa[p + 'bound_by']}: "
-               f"{fa[p + 'flop']:.4e} FLOP)"
+               f"{fa[p + 'flop']:.4e} FLOP)" + (
+                   "" if p + "library_ms" not in fa else
+                   f", library_ms {fa[p + 'library_ms']:.6f} (SDPA; "
+                   f"|SDPA - kernel| {fa[p + 'library_err']})")
                for label, p in (("gemma2", "gemma_"),
-                                ("recurrentgemma", "rg_")))))
+                                ("recurrentgemma", "rg_"),
+                                ("hubert", "hubert_"),
+                                ("llama4", "llama4_")))))
 
     serving = dict(serve_batch=serve_batch, prompt=serve_prompt,
                    new=serve_new)
-
-    def lm(key, phase, **kw):
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        s = phase(torch, dev, seed, counters, reduced=model_reduced, **kw)
-        if dev.type == "cuda":
-            s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        s["seconds"] = time.perf_counter() - t0
-        results[key] = s
-        extra = "" if "serve_s" not in s else (
-            f"; serving: {serve_batch} requests x {serve_prompt}-token "
-            f"prompts + {serve_new} new tokens in {s['serve_s']:.3f} s "
-            f"(prefill alone {s['prefill_s']:.3f} s, "
-            f"{s['prefill_tokens_per_s']:.1f} prompt tokens/s; decode "
-            f"{s['decode_tokens_per_s']:.1f} tokens/s), "
-            f"{s['device_steps']} device steps, kernel launches in the "
-            f"counted call {_nonzero(s['serve_launches'])}; bf16 step "
-            f"logits {s['step_drift']:.3e} of max|logit| off the bf16 "
-            f"kernel-path forward ({s['greedy_agree']}/"
-            f"{serve_batch * serve_new} greedy tokens its argmax), "
-            f"{s['step_noise']:.3e} off the f32 forward (the bf16 forward: "
-            f"{s['fwd_noise']:.3e}); f32 step logits within "
-            f"{s['step_err_f32']:.3e} of the f32 kernel-path forward "
-            f"(median {s['step_median_f32']:.3e}, {s['step_over_f32']}/"
-            f"{serve_new + 1} steps over {F32_LOGIT_TOL:.0e}; limit "
-            f"{s['step_tol_f32']:.3e}; the plain path's own "
-            f"{s['step_noise_f32']}, median "
-            f"{s['step_noise_median_f32']}), "
-            f"{s['greedy_checked']} greedy tokens its argmax "
-            f"({s['greedy_near_ties']} near-ties not held)")
-        out(f"{key}: {s['params']} params; scoring {s['tokens_per_s']:.1f} "
-            f"tokens/s (loss_fn {s['loss_s']:.3f} s, model_apply "
-            f"{s['forward_s']:.3f} s), kernel launches "
-            f"{_nonzero(s['launches'])} (per forward "
-            f"{_nonzero(s['per_forward'])}), loss {s['loss']:.6f} vs plain "
-            f"path {s['plain_loss']:.6f}; layer mixer outputs within "
-            f"{s['layer_err']:.3e} of the plain path's; f32 logits within "
-            f"{s['f32_err']:.3e} of max|logit| at positions {s['head']}.. "
-            f"(limit {F32_LOGIT_TOL:.0e}; the two plain f32 paths "
-            f"{s['f32_noise']})" + ("" if not s["head"] else
-            f", {s['head_err']:.3e} at positions 0-{s['head'] - 1} (limit "
-            f"{s['head_tol']:.3e}; the two plain f32 paths "
-            f"{s['head_noise']:.3e})") + f"; bf16 logits "
-            f"{s['bf16_vs_plain']:.3e} of max|logit| {s['max_logit']:.3f} "
-            f"off the plain path's, {s['kernel_noise']:.3e} off the f32 "
-            f"forward at positions {s['head']}.. (plain path "
-            f"{s['plain_noise']:.3e}, limit {NOISE_RATIO}x)" + (
-                "" if not s["head"] else
-                f", at positions 0-{s['head'] - 1} {s['head_bf16'][0]:.3e} "
-                f"(plain path {s['head_bf16'][1]:.3e}; not held)")
-            + ("" if s["decay_chunk_max"] is None else
-               f"; the layers' scans saw sum |log w| up to "
-               f"{s['decay_chunk_max']:.3f} over a 64-token chunk (the "
-               f"reference's chunked form holds below ~80)")
-            + f"{extra}; "
-            f"max_memory_allocated {s.get('max_memory_allocated', 'n/a')} "
-            f"({s['seconds']:.1f} s)")
-        pr = s["profile"]
-        if pr:
-            out(f"{key}: one bf16 model_apply under the profiler: "
-                f"{pr['wall_ms']:.3f} ms wall, {pr['device_ms']:.3f} ms of "
-                f"device time (busy share {pr['busy_share']:.4f}), "
-                f"{pr['launches']} kernel launches; busiest: " + "; ".join(
-                    f"{k} {ms:.3f} ms x {n}" for k, ms, n in pr["top"])
-                + "; hand-written: " + ("; ".join(
-                    f"{k} {ms:.3f} ms x {n} ({ms / n:.4f} a launch)"
-                    for k, (ms, n) in pr["ours"].items()) or "none"))
+    lm = model_runner(torch, dev, seed, counters, results,
+                      reduced=model_reduced, serve_batch=serve_batch,
+                      serve_prompt=serve_prompt, serve_new=serve_new,
+                      out=out)
 
     lm("model", model_phase, batch=model_batch, seq=model_seq, keep=True,
        **serving)
@@ -4687,7 +5137,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     lm("recurrentgemma", model_phase, batch=1, seq=rg_seq,
        name="recurrentgemma", arch=RG_ARCH, n_layers=RG_LAYERS, tag=17,
        prepare=slow_decay, **serving)
-    out(f"run: phases 2-18 in {time.perf_counter() - t_run:.1f} s")
+    family_phases(lm, model_seq, hubert_frames, serving)
+    out(f"run: phases 2-22 in {time.perf_counter() - t_run:.1f} s")
 
     paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve"),
              "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve"),
@@ -4695,7 +5146,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                              "serve"),
              "label_prop": ("graph", "unionfind", "serve"),
              "sorted_merge": ("map", "sketch", "serve"),
-             "flash_attention": ("model", "gemma2", "recurrentgemma"),
+             "flash_attention": ("model", "gemma2", "recurrentgemma",
+                                 "llama4", "vision", "hubert"),
              "rwkv6_scan": ("rwkv6",),
              "rglru_scan": ("recurrentgemma",)}
     kernels = []
@@ -4727,7 +5179,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             rec.update({k: t.get(k) for k in (
                 "shape", "gemma_shape", "gemma_ms", "gemma_plain_ms",
                 "gemma_bound_ms", "rg_shape", "rg_ms", "rg_plain_ms",
-                "rg_bound_ms")})
+                "rg_bound_ms") + tuple(
+                    p + k for p in ("hubert_", "llama4_") for k in (
+                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms"))})
         if name == "rwkv6_scan":
             rec.update({k: t.get(k) for k in (
                 "step_ms", "by_batch", "prefill_shape", "prefill_ms",
@@ -4801,6 +5256,27 @@ def scan_only(torch, seed):
     print(scan_line(ls, time.perf_counter() - t0, True))
 
 
+def families_only(torch, seed):
+    """``--families``: phase 2 and phases 19-22 alone (llama4, deepseek,
+    the VLM, HuBERT), for work on the model stack."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import rglru_scan, rwkv6_scan
+
+    build_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"flash_attention": flash_attention,
+                "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan}
+    t0 = time.perf_counter()
+    lm = model_runner(torch, dev, seed, counters, {}, reduced=False,
+                      serve_batch=SERVE_BATCH, serve_prompt=SERVE_PROMPT,
+                      serve_new=SERVE_NEW)
+    family_phases(lm, MODEL_SEQ, HUBERT_FRAMES,
+                  dict(serve_batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                       new=SERVE_NEW))
+    print(f"families: {time.perf_counter() - t0:.1f} s")
+
+
 def serve_only(torch, seed):
     """``--serve``: phases 2 and 14 alone, on fresh random Qwen2-0.5B
     weights, for work on the serving layer."""
@@ -4863,6 +5339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--megapass", action="store_true",
                     help="only the build and the megapass phase (phase 2 "
                          "and the phase after 5)")
+    ap.add_argument("--families", action="store_true",
+                    help="only the build and the llama4, deepseek, vision "
+                         "and hubert phases (phases 2 and 19-22)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -4910,6 +5389,9 @@ def main(argv=None) -> int:
         return 0
     if args.megapass:
         megapass_only(torch, args.seed)
+        return 0
+    if args.families:
+        families_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

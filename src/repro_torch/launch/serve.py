@@ -64,10 +64,13 @@ class DecodeExecutor:
     absorbs the padding tokens), prefills them into the slots and greedily
     decodes n_tokens.  The weights are drawn from ``seed`` (``model_init``)
     unless ``params`` are given.  The cache is K/V for attention layers
-    (a ring of window + 1 slots for local ones), the recurrent state for
-    RWKV-6 and RG-LRU layers (O(1) in the context): K/V, the RG-LRU conv
-    history and the RWKV token-shift inputs in ``cache_dtype`` (bf16, as
-    the reference's), the recurrent states in f32.  The generated
+    (a ring of window + 1 slots for local ones), the latent ``c`` and the
+    rope key ``kr`` for MLA layers (deepseek's prefix too), the recurrent
+    state for RWKV-6 and RG-LRU layers (O(1) in the context): K/V, MLA's
+    latents, the RG-LRU conv history and the RWKV token-shift inputs in
+    ``cache_dtype`` (bf16, as the reference's), the recurrent states in
+    f32.  It feeds tokens only, as the reference's executor: the VLM's
+    image embeddings and HuBERT's frames do not pass through it.  The generated
     tokens stay on the device until one fetch at the end of the call.
     With ``keep_logits`` the call keeps each step's next-token logits in
     ``step_logits`` (prefill first, then each decode step's).

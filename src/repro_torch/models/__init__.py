@@ -1,13 +1,14 @@
-"""The decoder model stack of the port (``repro.models``' twin): the dense
-and the recurrent families."""
-from . import recurrent
+"""The model stack of the port (``repro.models``' twin): every family of
+the reference's ten configs — dense, MoE, MLA, cross-attention, audio
+frontend, recurrent."""
+from . import mla, moe, recurrent
 from .config import ArchConfig, LayerSpec, MLAConfig, MoEConfig, reduced
 from .transformer import count_params, init_cache, model_apply, model_init
 from .lm import lm_loss, loss_fn, make_decode_step, make_prefill
 
 __all__ = [
     "ArchConfig", "LayerSpec", "MLAConfig", "MoEConfig", "reduced",
-    "recurrent",
+    "mla", "moe", "recurrent",
     "count_params", "init_cache", "model_apply", "model_init",
     "lm_loss", "loss_fn", "make_decode_step", "make_prefill",
 ]

@@ -1,4 +1,5 @@
-"""Attention family: GQA full / local self-attention, chunked online softmax.
+"""Attention family: GQA full / local / cross attention, chunked online
+softmax.
 
 The port of the reference's ``models/attention.py``.  The full-sequence
 forward (``mode="train"``) picks its attention by ``cfg.attention_impl``:
@@ -16,7 +17,14 @@ more (:func:`decode_attention`).
 Caches are updated in place (the reference returns new arrays): prefill
 writes the prompt's K/V into the zeroed cache, or the last ``Smax`` of
 them rolled into the ring of a local layer; decode writes one slot.
-Cross-attention (the VLM's ``lspec.cross_attn``) raises: ROADMAP A15.
+
+Cross-attention (the VLM's ``lspec.cross_attn`` layers) attends the
+context ``ctx`` (the image embeddings, (B, n_img_tokens, D)) with no rope
+and no mask, as the reference does: ``naive_attention`` in train and
+prefill, whatever ``attention_impl`` says; prefill writes the image K/V
+into the layer's (B, n_img_tokens, K, hd) cache, and decode attends that
+cache with :func:`decode_attention` (every slot valid) and leaves it as
+it is.
 """
 from __future__ import annotations
 
@@ -30,13 +38,6 @@ from .layers import dense, dense_init, rope, softcap
 
 NEG_INF = -1e30
 IMPLS = ("xla_chunked", "naive", "pallas")
-
-
-def _no_cross(lspec: LayerSpec) -> None:
-    if lspec.cross_attn:
-        raise NotImplementedError(
-            "cross-attention (the VLM's image layers) is not ported yet: "
-            "ROADMAP A15")
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
@@ -190,25 +191,46 @@ def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0,
 # ---------------------------------------------------------------------------
 def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
                positions: torch.Tensor,
+               ctx: Optional[torch.Tensor] = None,
                cache: Optional[Dict[str, Any]] = None,
                cache_len: Optional[int] = None,
                mode: str = "train") -> torch.Tensor:
-    """Self attention.  Returns y; in prefill and decode mode ``cache``
-    (``{"k", "v"}``) is updated in place."""
-    _no_cross(lspec)
+    """Self or cross attention.  Returns y; in prefill and decode mode
+    ``cache`` (``{"k", "v"}``) is updated in place (a cross layer's only
+    at prefill)."""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = cfg.attn_scale or hd ** -0.5
-    causal = cfg.causal
+    cross = lspec.cross_attn
+    causal = cfg.causal and not cross
     window = lspec.window if lspec.mixer == "local" else 0
 
     q = dense(p["q"], x).reshape(B, S, H, hd)
-    k = dense(p["k"], x).reshape(B, S, K, hd)
-    v = dense(p["v"], x).reshape(B, S, K, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cross and mode == "decode":
+        k = v = None          # the image K/V were cached at prefill
+    else:
+        src = ctx if cross else x
+        Skv = src.shape[1]
+        k = dense(p["k"], src).reshape(B, Skv, K, hd)
+        v = dense(p["v"], src).reshape(B, Skv, K, hd)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "train":
+    if cross and mode in ("train", "prefill"):
+        if mode == "prefill":
+            if tuple(cache["k"].shape) != tuple(k.shape):
+                raise ValueError(
+                    f"a cross layer's cache holds {tuple(cache['k'].shape)} "
+                    f"K/V, the context gives {tuple(k.shape)}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        o = naive_attention(q, k, v, causal=False, scale=scale,
+                            cap=cfg.attn_softcap)
+    elif cross and mode == "decode":
+        o = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
+                             scale=scale, cap=cfg.attn_softcap)
+    elif mode == "train":
         impl = cfg.attention_impl
         if impl == "naive":
             o = naive_attention(q, k, v, causal=causal, window=window,
@@ -262,7 +284,9 @@ def attn_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
                     max_len: int, dtype: torch.dtype = torch.bfloat16, *,
                     device: torch.device, lead: Tuple[int, ...] = ()):
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    if lspec.mixer == "local" and lspec.window:
+    if lspec.cross_attn:
+        max_len = cfg.n_img_tokens
+    elif lspec.mixer == "local" and lspec.window:
         max_len = min(max_len, lspec.window + 1)
     shape = lead + (batch, max_len, K, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -9,6 +9,14 @@ a copy with no reordering and no transpose:
   ``_stack_init``); the ``n_remainder`` layers ``tree["rem"][j]`` follow;
 - dense weights stay ``(d_in, d_out)`` and apply as ``x @ w``; the
   embedding stays ``(vocab, d)``;
+- ``tree["prefix"]`` is deepseek's dense first layer (a block with a GLU
+  FFN of ``first_layer_ffn``), present exactly when ``cfg.n_prefix``;
+  ``embed`` is absent and ``head`` present for the audio frontend
+  (HuBERT), ``head`` also for an untied unembedding;
+- the MoE FFN's leaves: ``router`` (dense, f32), ``w_up`` and ``w_gate``
+  ``(E, d_model, d_ff)``, ``w_down`` ``(E, d_ff, d_model)`` (bf16), and
+  ``sh_up``, ``sh_gate``, ``sh_down`` (dense) with shared experts; MLA's:
+  ``q``, ``dkv``, ``uk``, ``uv``, ``o`` (dense) and ``kv_norm``;
 - the recurrent leaves keep the reference's names and shapes: RG-LRU's
   ``in_x``, ``in_g``, ``gate_a``, ``gate_x``, ``out`` (dense),
   ``conv_w`` ``(W, d_rnn)``, ``conv_b``, ``lam``; RWKV-6's ``w_r``,
@@ -21,12 +29,16 @@ a copy with no reordering and no transpose:
 
 The cache carries the same way: ``{"stack", "rem", "prefix"}`` of
 ``{"mixer": ..., "ffn": ...}`` blocks, the mixer's ``{"k", "v"}`` (an
-attention layer), ``{"h", "conv"}`` (RG-LRU: ``(B, d_rnn)`` f32 and
+attention layer; a cross layer's ``(B, n_img_tokens, K, hd)``), MLA's
+``{"c", "kr"}`` (``(B, S, kv_lora_rank)``, ``(B, S, rope_head_dim)``),
+``{"h", "conv"}`` (RG-LRU: ``(B, d_rnn)`` f32 and
 ``(B, W - 1, d_rnn)``) or ``{"state", "x_prev"}`` (RWKV-6: ``(B, H, hd,
 hd)`` f32 and ``(B, d_model)``), the FFN's ``{"x_prev"}`` for the RWKV
-channel mix, else ``{}``; each leaf keeps its dtype, so tests can compare
-the prefill and decode caches of both packages.  The layout check is
-generic (period slots and the stacked leading axis), for every family.
+channel mix, else ``{}``; ``cache["prefix"]`` is the prefix block's
+cache (``{}`` without one); each leaf keeps its dtype, so tests can
+compare the prefill and decode caches of both packages.  The layout check
+is generic (period slots, the stacked leading axis, the prefix), for
+every family.
 """
 from __future__ import annotations
 
@@ -76,6 +88,10 @@ def tree_to_numpy(tree: Any) -> Any:
 
 
 def _check_layout(tree, cfg: ArchConfig, what: str) -> None:
+    has = bool(tree.get("prefix"))
+    if has != bool(cfg.n_prefix):
+        raise ValueError(f"{what}: {cfg.name} has {cfg.n_prefix} prefix "
+                         f"layers, the tree {'one' if has else 'none'}")
     n_full = cfg.n_full_periods
     want = len(cfg.period) if n_full > 0 else 0
     if len(tree["stack"]) != want or len(tree["rem"]) != cfg.n_remainder:

@@ -1,6 +1,8 @@
 """LM heads: the loss, and the prefill and decode step factories.
 
-The port of the reference's ``models/lm.py``.  ``lm_loss_chunked`` is a
+The port of the reference's ``models/lm.py``.  The batch dict reaches
+``model_apply`` as it is: ``tokens`` (or HuBERT's ``frames``),
+``labels``, ``mask`` and the VLM's ``image_embeds``.  ``lm_loss_chunked`` is a
 loop over sequence chunks (the reference's checkpointed ``lax.scan``: no
 gradient here, so nothing to recompute); ``cfg.loss_chunk`` picks it in
 :func:`loss_fn`, as in the reference.
@@ -85,14 +87,17 @@ def make_prefill(cfg: ArchConfig):
 
 
 def make_decode_step(cfg: ArchConfig):
-    """decode(params, cache, cache_len, last_tokens) ->
-    (next_tokens, logits, cache); ``cache_len`` a Python int, the greedy
-    tokens int32 (argmax: the first index on ties)."""
+    """decode(params, cache, cache_len, last_tokens, extra=None) ->
+    (next_tokens, logits, cache); ``cache_len`` a Python int, ``extra``
+    more batch entries, the greedy tokens int32 (argmax: the first index
+    on ties)."""
 
-    def decode(params, cache, cache_len, last_tokens):
-        logits, new_cache = model_apply(params, cfg, {"tokens": last_tokens},
-                                        mode="decode", cache=cache,
-                                        cache_len=cache_len)
+    def decode(params, cache, cache_len, last_tokens, extra=None):
+        batch = {"tokens": last_tokens}
+        if extra:
+            batch.update(extra)
+        logits, new_cache = model_apply(params, cfg, batch, mode="decode",
+                                        cache=cache, cache_len=cache_len)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, logits[:, -1], new_cache
 

@@ -1,70 +1,60 @@
 """Transformer assembly: blocks, stacks of periods, caches.
 
-The port of the reference's ``models/transformer.py`` for the dense
-decoder and recurrent families: ``full`` and ``local`` attention mixers
-(``models/attention.py``) and the ``rglru`` and ``rwkv6`` recurrent mixers
-(``models/recurrent.py``), with ``glu``, ``mlp`` or ``rwkv_cm`` FFNs (qwen2,
-yi, internlm2, gemma2, recurrentgemma, rwkv6).  The parameter tree keeps the
-reference's layout: ``params["stack"][j]`` holds period slot ``j`` of all
-``n_full_periods`` full periods stacked on a leading axis (layer
-``i·len(period) + j`` is index ``i`` there), then ``params["rem"]`` the
-remainder layers; the cache mirrors it, a block's cache being
-``{"mixer": ..., "ffn": ...}`` (K/V, ``{"h", "conv"}`` or
-``{"state", "x_prev"}``; ``{"x_prev"}`` for ``rwkv_cm``, else ``{}``).
-The model runs the stack as a
-Python loop over periods (the reference's ``lax.scan``; ``use_scan`` and
-``remat`` change nothing in a forward pass without a gradient).
-
-What the port does not build yet raises ``NotImplementedError`` with its
-ROADMAP item: MoE FFNs (A13), MLA and deepseek's dense first layer (A14),
-VLM cross-attention (A15), the audio frontend (A16).  The reference's
-``ShardCtx`` is not carried over: the port has one device (A9).
+The port of the reference's ``models/transformer.py``, for all ten of its
+configurations: ``full`` and ``local`` attention mixers, cross-attention
+layers (``lspec.cross_attn``, the VLM's; ``models/attention.py``), the
+``mla`` mixer (``models/mla.py``), the ``rglru`` and ``rwkv6`` recurrent
+mixers (``models/recurrent.py``), with ``glu``, ``mlp``, ``moe``
+(``models/moe.py``) or ``rwkv_cm`` FFNs.  The parameter tree keeps the
+reference's layout: ``params["prefix"]`` (deepseek's dense first layer:
+a block of ``period[0]``'s mixer with a GLU FFN of ``first_layer_ffn``,
+applied before the stack), ``params["stack"][j]`` holding period slot
+``j`` of all ``n_full_periods`` full periods stacked on a leading axis
+(layer ``i·len(period) + j`` is index ``i`` there), then
+``params["rem"]`` the remainder layers; ``embed`` unless the model takes
+frame embeddings (``audio_frontend``: HuBERT reads ``batch["frames"]``),
+``head`` when it has an untied one.  The cache mirrors it, a block's
+cache being ``{"mixer": ..., "ffn": ...}`` (K/V, MLA's ``{"c", "kr"}``,
+``{"h", "conv"}`` or ``{"state", "x_prev"}``; ``{"x_prev"}`` for
+``rwkv_cm``, else ``{}``), ``cache["prefix"]`` the prefix's (``{}``
+without one).  The VLM's cross layers attend ``batch["image_embeds"]``.
+The model runs the stack as a Python loop over periods (the reference's
+``lax.scan``; ``use_scan`` and ``remat`` change nothing in a forward pass
+without a gradient).  The reference's ``ShardCtx`` is not carried over:
+the port has one device (A9).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..core.batched_pq import resolve_device
-from . import attention, recurrent
+from . import attention, mla, moe, recurrent
 from .config import ArchConfig, LayerSpec
 from .layers import (act_fn, dense, dense_init, embed, embed_init, rmsnorm,
                      rmsnorm_init, softcap, unembed)
 
-_MISSING = {
-    "mla": "multi-head latent attention: ROADMAP A14",
-    "moe": "mixture-of-experts FFNs: ROADMAP A13",
-}
 # mixer kind -> (init, apply)
 _MIXERS = {
     "full": (attention.attn_init, attention.attn_apply),
     "local": (attention.attn_init, attention.attn_apply),
+    "mla": (mla.mla_init, mla.mla_apply),
     "rglru": (recurrent.rglru_init, recurrent.rglru_apply),
     "rwkv6": (recurrent.rwkv6_init, recurrent.rwkv6_apply),
 }
-_FFNS = ("glu", "mlp", "rwkv_cm")
+_FFNS = ("glu", "mlp", "moe", "rwkv_cm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    part of ``cfg`` that the port does not build yet."""
-    if cfg.audio_frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio frontend is not ported yet: ROADMAP A16")
-    if cfg.first_layer_ffn:
-        raise NotImplementedError(
-            f"{cfg.name}: the dense first-layer prefix is not ported yet: "
-            "ROADMAP A14")
+    """Raise ``ValueError`` on a mixer or FFN kind the model does not
+    know."""
     for lspec in cfg.period:
         for kind, known in ((lspec.mixer, _MIXERS), (lspec.ffn, _FFNS)):
-            if kind in _MISSING:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_MISSING[kind]} is not ported yet")
             if kind not in known:
                 raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
-        attention._no_cross(lspec)
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +62,8 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
              d_ff: int = 0, *, lead: Tuple[int, ...] = ()):
+    if lspec.ffn == "moe":
+        return moe.moe_init(gen, cfg, lead=lead)
     if lspec.ffn == "rwkv_cm":
         return recurrent.rwkv_cm_init(gen, cfg, lead=lead)
     D = cfg.d_model
@@ -85,8 +77,10 @@ def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
 
 def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, cache=None,
               mode="train"):
-    """GLU or MLP, the activation in f32, cast back before ``down``; or
-    the RWKV channel mix (its ``cache`` updated in place)."""
+    """GLU or MLP, the activation in f32, cast back before ``down``; the
+    MoE; or the RWKV channel mix (its ``cache`` updated in place)."""
+    if lspec.ffn == "moe":
+        return moe.moe_apply(p, cfg, x)
     if lspec.ffn == "rwkv_cm":
         return recurrent.rwkv_cm_apply(p, cfg, x, cache=cache, mode=mode)
     act = act_fn(cfg.ffn_act)
@@ -115,12 +109,13 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
 
 
 def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
-                cache=None, cache_len=None, mode="train"):
+                ctx=None, cache=None, cache_len=None, mode="train"):
     """One block; in prefill and decode mode ``cache`` (the block's) is
-    updated in place."""
+    updated in place.  ``ctx``: what a cross-attention layer attends."""
     _, apply_fn = _MIXERS[lspec.mixer]
     h = apply_fn(p["mixer"], cfg, lspec, rmsnorm(p["n1"], x),
-                 positions=positions, cache=cache["mixer"] if cache else None,
+                 positions=positions, ctx=ctx,
+                 cache=cache["mixer"] if cache else None,
                  cache_len=cache_len, mode=mode)
     if cfg.post_norm:
         h = rmsnorm(p["pn1"], h)
@@ -135,11 +130,14 @@ def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
 def block_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
                      max_len: int, dtype: torch.dtype = torch.bfloat16, *,
                      device: torch.device, lead: Tuple[int, ...] = ()):
-    """A block's cache: K/V, ``{"h", "conv"}`` or ``{"state", "x_prev"}``
-    for the mixer, ``{"x_prev"}`` for ``rwkv_cm``.  K/V, ``conv`` and
-    ``x_prev`` in ``dtype``; the recurrent states in f32."""
+    """A block's cache: K/V, ``{"c", "kr"}``, ``{"h", "conv"}`` or
+    ``{"state", "x_prev"}`` for the mixer, ``{"x_prev"}`` for ``rwkv_cm``.
+    K/V, MLA's latents, ``conv`` and ``x_prev`` in ``dtype``; the
+    recurrent states in f32."""
     kw = dict(device=device, lead=lead)
-    if lspec.mixer == "rglru":
+    if lspec.mixer == "mla":
+        mix = mla.mla_cache_init(cfg, batch, max_len, dtype, **kw)
+    elif lspec.mixer == "rglru":
         mix = recurrent.rglru_cache_init(cfg, batch, dtype, **kw)
     elif lspec.mixer == "rwkv6":
         mix = recurrent.rwkv6_cache_init(cfg, batch, dtype, **kw)
@@ -162,6 +160,11 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _prefix_spec(cfg: ArchConfig) -> LayerSpec:
+    """The dense first layer's spec: ``period[0]`` with a GLU FFN."""
+    return dataclasses.replace(cfg.period[0], ffn="glu")
+
+
 def model_init(key: Union[int, torch.Generator], cfg: ArchConfig, *,
                device=None) -> Dict[str, Any]:
     """Random weights of the reference's distributions, drawn from a
@@ -176,23 +179,28 @@ def model_init(key: Union[int, torch.Generator], cfg: ArchConfig, *,
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(int(key))
     dev = gen.device
-    p: Dict[str, Any] = {"embed": embed_init(gen, cfg.vocab, cfg.d_model)}
+    p: Dict[str, Any] = {}
+    if not cfg.audio_frontend:
+        p["embed"] = embed_init(gen, cfg.vocab, cfg.d_model)
+    if cfg.n_prefix:
+        p["prefix"] = block_init(gen, cfg, _prefix_spec(cfg),
+                                 d_ff=cfg.first_layer_ffn)
     n_full = cfg.n_full_periods
     p["stack"] = tuple(block_init(gen, cfg, lspec, lead=(n_full,))
                        for lspec in cfg.period) if n_full > 0 else ()
     p["rem"] = tuple(block_init(gen, cfg, cfg.period[j % len(cfg.period)])
                      for j in range(cfg.n_remainder))
     p["final_norm"] = rmsnorm_init(cfg.d_model, device=dev)
-    if not cfg.tie_embeddings:
+    if cfg.audio_frontend or not cfg.tie_embeddings:
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab)
     return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype: torch.dtype = torch.bfloat16, device=None):
-    """Decode/prefill cache tree mirroring the param layout (K/V, the
-    RG-LRU conv history and the RWKV token-shift inputs in ``dtype``, bf16
-    as in the reference; the recurrent states in f32)."""
+    """Decode/prefill cache tree mirroring the param layout (K/V, MLA's
+    latents, the RG-LRU conv history and the RWKV token-shift inputs in
+    ``dtype``, bf16 as in the reference; the recurrent states in f32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n_full = cfg.n_full_periods
@@ -202,7 +210,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     rem = tuple(block_cache_init(cfg, cfg.period[j % len(cfg.period)],
                                  batch, max_len, dtype, device=dev)
                 for j in range(cfg.n_remainder))
-    return {"stack": stack, "rem": rem, "prefix": {}}
+    prefix = (block_cache_init(cfg, cfg.period[0], batch, max_len, dtype,
+                               device=dev) if cfg.n_prefix else {})
+    return {"stack": stack, "rem": rem, "prefix": prefix}
+
+
+def embed_input(params, cfg: ArchConfig,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The stack's input (B, S, D): HuBERT's ``batch["frames"]``, else the
+    embedding of ``batch["tokens"]``, scaled by sqrt(d_model) when
+    ``scale_embed``."""
+    if cfg.audio_frontend:
+        return batch["frames"]
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.scale_embed:
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    return x
 
 
 def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -216,18 +239,20 @@ def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     return_hidden = mode == "train_hidden"
     if return_hidden:
         mode = "train"
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens)
-    if cfg.scale_embed:
-        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    x = embed_input(params, cfg, batch)
     S = x.shape[1]
     if mode == "decode":
         positions = torch.full((1,), cache_len, dtype=torch.int64,
                                device=x.device)
     else:
         positions = torch.arange(S, device=x.device)
-    kw = dict(positions=positions, cache_len=cache_len, mode=mode)
+    kw = dict(positions=positions, ctx=batch.get("image_embeds"),
+              cache_len=cache_len, mode=mode)
 
+    if cfg.n_prefix:
+        x = block_apply(params["prefix"], cfg, _prefix_spec(cfg), x,
+                        cache=cache["prefix"] if cache is not None else None,
+                        **kw)
     for i in range(cfg.n_full_periods):
         for j, lspec in enumerate(cfg.period):
             cj = (_index(cache["stack"][j], i) if cache is not None

@@ -38,7 +38,8 @@ MODULES = [
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.linear_scan", "repro_torch.kernels.linear_scan.ops",
     "repro_torch.kernels.linear_scan.ref", "repro_torch.models",
-    "repro_torch.models.recurrent",
+    "repro_torch.models.recurrent", "repro_torch.models.moe",
+    "repro_torch.models.mla",
     "repro_torch.models.config", "repro_torch.models.layers",
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.lm", "repro_torch.models.convert",

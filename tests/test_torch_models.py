@@ -38,8 +38,6 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as tt
 
 DENSE = ("qwen2_0_5b", "yi_6b", "gemma2_2b")
-OUTSIDE = ("llama4_scout_17b_a16e", "deepseek_v2_lite_16b",
-           "llama_3_2_vision_11b", "hubert_xlarge")
 IMPLS = ("naive", "xla_chunked", "pallas")
 CPU = torch.device("cpu")
 
@@ -393,16 +391,17 @@ def test_decode_executor_keeps_step_logits():
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not build
+# what the model does not know
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", OUTSIDE)
-def test_families_outside_the_slice_raise(arch):
-    for get in (tconfigs.get, tconfigs.get_reduced):
-        cfg = get(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP A1[2-6]"):
-            tt.model_init(0, cfg, device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.init_cache(cfg, 1, 8, device=CPU)
+@pytest.mark.parametrize("field", ["mixer", "ffn"])
+def test_unknown_layer_kind_raises(field):
+    _, tc = _cfgs("qwen2_0_5b")
+    cfg = tc.with_(period=(dataclasses.replace(tc.period[0],
+                                               **{field: "conv"}),))
+    for build in (lambda: tt.model_init(0, cfg, device=CPU),
+                  lambda: tt.init_cache(cfg, 1, 8, device=CPU)):
+        with pytest.raises(ValueError, match="unknown layer kind 'conv'"):
+            build()
 
 
 def test_unknown_attention_impl_raises():
