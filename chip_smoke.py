@@ -8,7 +8,7 @@ Needs one CUDA device and ``nvcc`` (the kernels are built from
 each printing a line:
 
 1. ``device`` — the card's name, then ``nvidia-smi``'s name and power limit.
-2. ``build`` — the eight kernels compiled for ``sm_90a`` (time, ptxas
+2. ``build`` — the ten kernels compiled for ``sm_90a`` (time, ptxas
    report).
 3. ``kernels`` — ``heap_kmin``, ``heap_sift`` and ``heap_insert`` run on
    CUDA tensors at the main path's shapes (4,000,000 keys; K = 1 and
@@ -255,6 +255,27 @@ each printing a line:
    non-causal ``flash_attention`` launches a forward); encoder-only, no
    serving.
    ``python3 chip_smoke.py --families`` runs phases 2 and 19-22 alone.
+23. ``train`` — the training path through the port's ``train()`` entry
+   point (:func:`train_phase`): (a) the backward kernels
+   ``rglru_scan_bwd`` (at (1, 8,192, 2,560) and (8, 512, 2,560)) and
+   ``rwkv6_scan_bwd`` (at (4, 4,096, 40, 64), (8, 512, 40, 64) and
+   S = 9) against their plain backwards on seeded inputs with decays
+   near 0 and near 1 and nonzero initial states — ``rglru_scan_bwd`` bit
+   for bit, ``rwkv6_scan_bwd`` within 2x the f32 plain backward's own
+   error against f64 — and, below the first shape, against autograd
+   through a forward; each one's ms, plain ms and bound by bytes; (b)
+   Qwen2-0.5B, RWKV-6 3B and RecurrentGemma-2B at full width and depth,
+   20 steps each of the pipeline's batches with remat on, bf16 weights
+   and lr 1e-3 (``TRAIN_RUNS``): loss first and last (it must fall), step
+   ms, tokens/s, peak memory, the launches of the scans and their
+   backwards (each > 0 where the model has such layers) and one profiled
+   step; (c) an f32 copy of each recurrent model at full width, reduced
+   depth: the loss and every gradient leaf through the kernels against
+   the plain scans, within 4x the two plain paths' distance; (d)
+   Qwen2-0.5B crashed and resumed from its checkpoint, its final loss
+   within 2e-3 of an uninterrupted run's; (e) ``flash_attention``
+   refuses a gradient.  ``python3 chip_smoke.py --train`` runs phases 2
+   and 23 alone.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -269,8 +290,10 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -311,6 +334,10 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:135",
     "rwkv6_scan": "src/repro/kernels/linear_scan/kernel.py:116",
     "rglru_scan": "src/repro/kernels/linear_scan/kernel.py:188",
+    # the backward kernels replace no TPU kernel (the reference's have no
+    # backward): each names the forward TPU kernel whose gradient it is
+    "rwkv6_scan_bwd": "src/repro/kernels/linear_scan/kernel.py:116",
+    "rglru_scan_bwd": "src/repro/kernels/linear_scan/kernel.py:188",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
@@ -3043,7 +3070,9 @@ def device_rows(ka):
 # kernels, rglru_scan's
 PROFILED = {"rwkv6_scan": ("::chunk::kernel", "::step::kernel"),
             "flash_attention": ("::bf16::kernel", "::f32::kernel"),
-            "rglru_scan": ("rglru_scan_kernel",)}
+            "rglru_scan": ("rglru_scan_kernel",),
+            "rwkv6_scan_bwd": ("rwkv6_scan_bwd_kernel",),
+            "rglru_scan_bwd": ("rglru_scan_bwd_kernel",)}
 
 
 def profile_once(torch, one, top=5):
@@ -4892,6 +4921,469 @@ def family_phases(lm, seq, hubert_frames, serving):
        name="hubert", arch=HUBERT_ARCH, tag=22, serving=None)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: training through the port's train() entry point
+# ---------------------------------------------------------------------------
+TRAIN_LR = 1e-3                # tests/test_train_integration.py's lr
+TRAIN_STEPS = 20
+# (arch, batch, seq): full width and depth, remat on (the configs'
+# default), bf16 parameters, the pipeline's batches
+TRAIN_RUNS = (("qwen2_0_5b", 2, 2048), ("rwkv6_3b", 2, 2048),
+              ("recurrentgemma_2b", 2, 2048))
+TRAIN_EXPECT = {"qwen2_0_5b": (),
+                "rwkv6_3b": ("rwkv6_scan", "rwkv6_scan_bwd"),
+                "recurrentgemma_2b": ("rglru_scan", "rglru_scan_bwd")}
+# the backward kernels' checks: RecurrentGemma's scoring and serving
+# shapes, RWKV-6 3B's scoring and serving shapes and a decode-sized S < 16
+RGLRU_BWD_SHAPES = ((1, RG_SEQ, RG_D_RNN), (SERVE_BATCH, SERVE_PROMPT,
+                                            RG_D_RNN))
+RWKV_BWD_SHAPES = ((RWKV_BATCH, RWKV_SEQ, 40, 64),
+                   (SERVE_BATCH, SERVE_PROMPT, 40, 64), (2, 9, 40, 64))
+# rwkv6_scan_bwd's largest error over its six gradients against the f64
+# plain backward, in units of the f32 plain backward's own (both sum in
+# f32, in other orders)
+BWD_NOISE_RATIO = 2.0
+# (c): f32 copies at full width, this many layers, B x S tokens (S not a
+# multiple of the backward's 64-step chunk)
+GRAD_LAYERS = {"rwkv6_3b": 2, "recurrentgemma_2b": 3}
+GRAD_BATCH, GRAD_SEQ = 2, 300
+GRAD_NOISE_RATIO = 4.0
+# a floor under that noise: a few f32 ulp of the largest gradient (RG-LRU's
+# plain and exact scans are one recurrence, so their paths can coincide)
+GRAD_FLOOR = 2.0 ** -20
+# (d): a crash and restart of Qwen2-0.5B at full width: one checkpoint
+# before the crash (label 3), the final one after the restart (4.9 GB
+# each: bf16 weights and f32 moments)
+RESTART = dict(steps=4, ckpt_every=2, fail_at_step=3, batch=2, seq=512)
+RESTART_RTOL = 2e-3
+FLOP_BWD_RWKV = 18             # a state element a step: see rwkv6_scan_bwd.cu
+
+
+def _rel(torch, got, want):
+    """max|got - want| / max|want| in f64 (0 for empty tensors)."""
+    if not want.numel():
+        return 0.0
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-300))
+
+
+def _grads_rel(torch, got, want):
+    return max(_rel(torch, g, w) for g, w in zip(got, want))
+
+
+def bwd_bounds(kind, shape, itemsize):
+    """The least time of one backward: the bytes it must move (each input
+    read once, each output written once) over 3.35 TB/s against its f32
+    FLOP.  RWKV-6: r, k, v in ``itemsize`` bytes, w and dy read and dr,
+    dk, dv, dw written in f32, state0 and dS_T read and dstate0 written,
+    u read and du written; ``FLOP_BWD_RWKV`` FLOP a state element a step,
+    as 3xTF32 on the tensor cores (495 / 3 TFLOP/s, the forward's rate).
+    RG-LRU: a, dhs, hs read and da, db written in f32, h0 and dh_T read
+    and dh0 written; 3 FLOP an element on the CUDA cores.  Returns (ms,
+    by, FLOP, bytes)."""
+    if kind == "rwkv6_scan_bwd":
+        B, S, H, hd = shape
+        n = B * S * H * hd
+        nbytes = (3 * itemsize * n + 24 * n + 12 * B * H * hd * hd
+                  + 8 * H * hd)
+        flop = FLOP_BWD_RWKV * B * S * H * hd * hd
+        rate = TF32_OPS_PER_S / 3
+    else:
+        B, S, R = shape
+        nbytes = 20 * B * S * R + 12 * B * R
+        flop = 3 * B * S * R
+        rate = F32_OPS_PER_S
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flop / rate * 1e3
+    return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms
+            else "operations", flop, nbytes)
+
+
+def _autograd(torch, fn, ins, outs_grad):
+    leaves = [x.detach().clone().requires_grad_(True) for x in ins]
+    return torch.autograd.grad(fn(*leaves), leaves, outs_grad)
+
+
+def scan_bwd_phase(torch, dev, seed, rglru_shapes, rwkv_shapes, timing):
+    """(a) ``rglru_scan_bwd`` and ``rwkv6_scan_bwd`` against their plain
+    backwards on seeded inputs (decays near 0 and near 1: RG-LRU's a and
+    RWKV-6's w = exp(-exp(U(-7, 3))) and exp(-exp(U(-6, 2))); nonzero
+    h0 / state0 and final-state gradients): ``rglru_scan_bwd`` bit for
+    bit; ``rwkv6_scan_bwd`` (bf16 r, k, v at every shape, f32 too below
+    the first) within BWD_NOISE_RATIO x the f32 plain backward's own
+    error against the plain backward run in f64.  Below the first shape
+    each is also held to autograd through a forward: RG-LRU's plain one
+    (bit for bit), RWKV-6's exact scan (``ref.py``; the chunked plain
+    form's decay domain excludes these w).  Then at each kind's first two
+    shapes the kernel's ms, the plain version's, the bound
+    (:func:`bwd_bounds`) and the scratch; no PyTorch call computes either
+    reverse recurrence, so no library yardstick."""
+    from repro_torch.kernels.linear_scan import ops
+    from repro_torch.kernels.linear_scan.ref import rwkv6_reference
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 23)
+    rec = {"rglru_scan_bwd": {"checked": 0, "max_abs_err": 0.0},
+           "rwkv6_scan_bwd": {"checked": 0, "max_abs_err": 0.0,
+                              "worst_ratio": 0.0, "autograd_ratio": 0.0}}
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rg = rec["rglru_scan_bwd"]
+    timed = {}
+    for i, (B, S, R) in enumerate(rglru_shapes):
+        a = torch.exp(-torch.exp(rand(B, S, R) * 10.0 - 7.0))
+        b, dhs = randn(B, S, R), randn(B, S, R)
+        h0, dhT = randn(B, R), randn(B, R)
+        hs, _ = ops.rglru_scan(a, b, h0)
+        got = ops.rglru_scan_bwd(a, h0, hs, dhs, dhT)
+        wants = [("plain", ops.rglru_scan_bwd_plain(a, h0, hs, dhs, dhT))]
+        if i:
+            wants.append(("autograd", _autograd(
+                torch, ops.rglru_scan_plain, (a, b, h0), (dhs, dhT))))
+        for what, want in wants:
+            for g, w in zip(got, want):
+                e = float((g - w).abs().max()) if g.numel() else 0.0
+                rg["max_abs_err"] = max(rg["max_abs_err"], e)
+                check(torch.equal(g, w), f"rglru_scan_bwd {(B, S, R)}: not "
+                      f"bit-equal to the {what} backward (max_abs_err {e})")
+        rg["checked"] += 1
+        timed.setdefault("rglru_scan_bwd", []).append((a, h0, hs, dhs, dhT))
+        del b, got, wants
+    r6 = rec["rwkv6_scan_bwd"]
+    for i, (B, S, H, hd) in enumerate(rwkv_shapes):
+        for dt in (torch.bfloat16,) if not i else (torch.bfloat16,
+                                                   torch.float32):
+            shape = (B, S, H, hd)
+            r, k, v = (randn(*shape).to(dt) for _ in range(3))
+            w = torch.exp(-torch.exp(rand(*shape) * 8.0 - 6.0))
+            u, s0 = randn(H, hd), randn(B, H, hd, hd)
+            dy, dsT = randn(*shape), randn(B, H, hd, hd)
+            ins = (r, k, v, w, u, s0, dy, dsT)
+            got = ops.rwkv6_scan_bwd(*ins)
+            p32 = ops.rwkv6_scan_bwd_plain(*ins)
+            p64 = ops.rwkv6_scan_bwd_plain(*(x.double() for x in ins))
+            err, noise = (_grads_rel(torch, got, p64),
+                          _grads_rel(torch, p32, p64))
+            what = f"rwkv6_scan_bwd {shape} {str(dt)[6:]}"
+            check(err <= BWD_NOISE_RATIO * noise, f"{what}: {err:.3e} of "
+                  f"max|grad| off the f64 plain backward, the f32 plain "
+                  f"backward {noise:.3e} (limit {BWD_NOISE_RATIO}x)")
+            r6["worst_ratio"] = max(r6["worst_ratio"], err / noise)
+            r6["max_abs_err"] = max(r6["max_abs_err"], max(
+                float((g - p).abs().max()) for g, p in zip(got, p32)))
+            del p32
+            if i:
+                ag = _autograd(torch, rwkv6_reference, (r, k, v, w, u, s0),
+                               (dy, dsT))
+                e_ag = _grads_rel(torch, got, ag)
+                n_ag = noise + _grads_rel(torch, ag, p64)
+                check(e_ag <= BWD_NOISE_RATIO * n_ag, f"{what}: {e_ag:.3e} "
+                      f"off autograd through the exact scan (limit "
+                      f"{BWD_NOISE_RATIO} x {n_ag:.3e})")
+                r6["autograd_ratio"] = max(r6["autograd_ratio"], e_ag / n_ag)
+                del ag
+            r6["checked"] += 1
+            if dt == torch.bfloat16 and i < 2:
+                timed.setdefault("rwkv6_scan_bwd", []).append(ins)
+            del got, p64
+    if not timing:
+        return rec
+    for name, fn, plain in (
+            ("rglru_scan_bwd", ops.rglru_scan_bwd, ops.rglru_scan_bwd_plain),
+            ("rwkv6_scan_bwd", ops.rwkv6_scan_bwd,
+             ops.rwkv6_scan_bwd_plain)):
+        r = rec[name]
+        for j, args in enumerate(timed[name]):
+            p = "" if not j else "serve_"
+            shape = tuple(args[0].shape)
+            r[p + "shape"] = list(shape)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(*args)
+            torch.cuda.synchronize()
+            r[p + "peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            r[p + "ms"] = _per_call_ms(torch, lambda: fn(*args), 5, 5,
+                                       hold=True)
+            r[p + "plain_ms"] = _per_call_ms(torch, lambda: plain(*args), 1,
+                                             1, hold=False)
+            (r[p + "bound_ms"], r[p + "bound_by"], r[p + "flop"],
+             r[p + "bytes"]) = bwd_bounds(name, shape,
+                                          args[0].element_size())
+        r["library_ms"] = None
+        if name == "rwkv6_scan_bwd":
+            B, S, H, _ = r["shape"]
+            r["scratch_bytes"] = 4 * B * H * ops.MAX_HEAD ** 2 * (
+                -(-S // ops.BWD_CHUNK) + ops.BWD_CHUNK)
+    return rec
+
+
+def _profile_step(torch, dev, cfg, batch, seq, seed):
+    """One warm train step of ``cfg`` (fresh weights from ``seed``) under
+    the profiler (:func:`profile_once`)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+
+    params = transformer.model_init(seed, cfg, device=dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=TRAIN_LR)
+    tb = device_batch(cfg, make_pipeline(cfg.vocab, seq, batch,
+                                         seed=seed).global_batch(0), 0,
+                      seed, dev)
+    step(params, opt, tb)
+    return profile_once(torch, lambda: step(params, opt, tb), top=6)
+
+
+def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
+    """(b) ``train()`` for each model of ``runs`` (full width and depth
+    unless ``reduced``, remat on, bf16 parameters, lr TRAIN_LR) with every
+    launch count set to 0 just before and read just after: each loss
+    falls from the first step to the last, each of the model's scan
+    kernels (forward and backward) launched and ``flash_attention`` not
+    (training runs ``xla_chunked``, as the reference's trainer); then one
+    more step of fresh weights under the profiler."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+
+    res = {"launches": dict.fromkeys(counters, 0), "models": {}}
+    for arch, batch, seq in runs:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m, launches = counted(
+            torch, dev, f"train {arch}", counters, TRAIN_EXPECT[arch],
+            lambda: train(arch, steps=steps, reduced=reduced, batch=batch,
+                          seq=seq, lr=TRAIN_LR, seed=seed, log_every=10,
+                          device=dev))
+        check(launches["flash_attention"] == 0, f"train {arch}: training "
+              f"launched flash_attention, which has no backward")
+        check(math.isfinite(m["final_loss"]) and m["loss_drop"] > 0,
+              f"train {arch}: the loss did not fall ({m['first_loss']} -> "
+              f"{m['final_loss']})")
+        for k, n in launches.items():
+            res["launches"][k] += n
+        m["launches"] = launches
+        m["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                     if dev.type == "cuda" else None)
+        m["seconds"] = time.perf_counter() - t0
+        m["batch"], m["seq"] = batch, seq
+        cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+        m["n_layers"] = cfg.n_layers
+        m["profile"] = (_profile_step(torch, dev, cfg, batch, seq, seed)
+                        if dev.type == "cuda" else None)
+        res["models"][arch] = m
+        pr = m["profile"]
+        out(f"train: {arch} ({cfg.n_layers} layers, batch {batch} x seq "
+            f"{seq}, {steps} steps, lr {TRAIN_LR}, remat {cfg.remat}): loss "
+            f"{m['first_loss']:.6f} -> {m['final_loss']:.6f}, step "
+            f"{m['step_ms']:.3f} ms (median), {m['tokens_per_s']:.1f} "
+            f"tokens/s, max_memory_allocated {m['max_memory_allocated']}, "
+            f"kernel launches {_nonzero(launches) or 'none'}"
+            + ("" if pr is None else
+               f"; one profiled step: {pr['wall_ms']:.3f} ms wall, "
+               f"{pr['device_ms']:.3f} ms of device time (busy share "
+               f"{pr['busy_share']:.4f}), {pr['launches']} launches; "
+               "busiest: " + "; ".join(f"{k} {ms:.3f} ms x {n}"
+                                      for k, ms, n in pr["top"])
+               + "; hand-written: " + ("; ".join(
+                   f"{k} {ms:.3f} ms x {n}"
+                   for k, (ms, n) in pr["ours"].items()) or "none"))
+            + f" ({m['seconds']:.1f} s)")
+    return res
+
+
+def grad_check(torch, dev, seed, layers, batch, seq, reduced):
+    """(c) For each recurrent model, an f32 copy at full width (``layers``
+    deep; RG-LRU's ``lam`` redrawn, :func:`slow_decay`): one step's loss
+    and every gradient leaf through the kernels (forward and backward)
+    against the plain path (:func:`plain_scans`), within GRAD_NOISE_RATIO
+    x the plain path's own noise: the larger of the distance of the two
+    plain f32 paths (the chunked plain scan and the exact one,
+    ``plain_scans(exact=True)``), of two runs of the plain path (CUDA's
+    embedding backward sums with atomics) and GRAD_FLOOR; each leaf
+    relative to its max|g|, the worst leaf against the worst."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim.tree import leaves
+
+    out = {}
+    for arch, n_layers in layers.items():
+        cfg = _model_cfg(arch, reduced, n_layers=n_layers)
+        params = _upcast(transformer.model_init(seed, cfg, device=dev))
+        slow_decay(torch, params, seed)
+        tb = device_batch(cfg, make_pipeline(cfg.vocab, seq, batch,
+                                             seed=seed).global_batch(0),
+                          0, seed, dev)
+        lk, gk = loss_and_grads(params, cfg, tb)
+        with plain_scans():
+            lp, gp = loss_and_grads(params, cfg, tb)
+            _, gp2 = loss_and_grads(params, cfg, tb)
+        with plain_scans(exact=True):
+            le, ge = loss_and_grads(params, cfg, tb)
+        gk, gp, gp2, ge = leaves(gk), leaves(gp), leaves(gp2), leaves(ge)
+        err = _grads_rel(torch, gk, gp)
+        noise = _grads_rel(torch, ge, gp)
+        rerun = _grads_rel(torch, gp2, gp)
+        limit = GRAD_NOISE_RATIO * max(noise, rerun, GRAD_FLOOR)
+        check(err <= limit, f"grads {arch}: the kernel path's gradients "
+              f"{err:.3e} of max|g| off the plain path's (limit "
+              f"{limit:.3e}: the two plain paths {noise:.3e} apart, two "
+              f"plain runs {rerun:.3e})")
+        out[arch] = dict(layers=cfg.n_layers, leaves=len(gk), err=err,
+                         noise=noise, rerun=rerun, limit=limit,
+                         loss=float(lk), plain_loss=float(lp),
+                         exact_loss=float(le))
+        del params, gk, gp, gp2, ge
+    return out
+
+
+def restart_check(torch, dev, seed, reduced):
+    """(d) Qwen2-0.5B through ``train()`` with a checkpoint directory (a
+    temporary one under ``build/``): crash at step
+    ``RESTART["fail_at_step"]``, resume from the last checkpoint and end
+    within RESTART_RTOL of an uninterrupted run's final loss (CUDA's
+    embedding backward sums with atomics, so the two runs' gradients
+    differ in their last bits; on the CPU the match is exact)."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import train
+
+    kw = dict(RESTART)
+    fail = kw.pop("fail_at_step")
+    t0 = time.perf_counter()
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
+                                     dir=base) as tmp:
+        free = shutil.disk_usage(tmp).free
+        d = str(Path(tmp) / "ck")
+        common = dict(reduced=reduced, lr=TRAIN_LR, seed=seed,
+                      log_every=100, device=dev, **kw)
+        t1 = time.perf_counter()
+        try:
+            train(MODEL_ARCH, ckpt_dir=d, fail_at_step=fail, **common)
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("restart: the simulated crash did not "
+                                 "happen")
+        crashed_s = time.perf_counter() - t1
+        resume = latest_step(d)
+        check(resume is not None and resume < kw["steps"],
+              f"restart: no checkpoint to resume from ({resume})")
+        t1 = time.perf_counter()
+        m1 = train(MODEL_ARCH, ckpt_dir=d, **common)
+        resumed_s = time.perf_counter() - t1
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (Path(d) / f"step_{kw['steps']:010d}")
+                         .iterdir())
+    m2 = train(MODEL_ARCH, **common)
+    diff = abs(m1["final_loss"] - m2["final_loss"])
+    limit = RESTART_RTOL * abs(m2["final_loss"]) if dev.type == "cuda" \
+        else 0.0
+    check(diff <= limit, f"restart: resumed final loss {m1['final_loss']} "
+          f"vs uninterrupted {m2['final_loss']} (limit {limit})")
+    return dict(resume=resume, final=m1["final_loss"],
+                clean=m2["final_loss"], diff=diff, limit=limit,
+                crashed_s=crashed_s, resumed_s=resumed_s,
+                ckpt_bytes=ckpt_bytes, free=free,
+                seconds=time.perf_counter() - t0)
+
+
+def refusal_check(torch, dev):
+    """(e) ``flash_attention`` under grad raises, on the card as on the
+    host, and without grad still launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (torch.randn((1, 128, 2, 64), device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    try:
+        flash_attention(q.requires_grad_(True), k, v)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"refusal: {e}")
+    else:
+        raise AssertionError("flash_attention returned a result under grad")
+    with torch.no_grad():
+        o = flash_attention(q, k, v)
+    check(o.shape == q.shape and bool(torch.isfinite(o.float()).all()),
+          "flash_attention without grad")
+    return True
+
+
+def train_phase(torch, dev, seed, counters, *, runs=TRAIN_RUNS,
+                steps=TRAIN_STEPS, rglru_shapes=RGLRU_BWD_SHAPES,
+                rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
+                grad_batch=GRAD_BATCH, grad_seq=GRAD_SEQ, reduced=False,
+                timing=True, out=print):
+    """Phase 23: (a) :func:`scan_bwd_phase`, (b) :func:`train_runs`, (c)
+    :func:`grad_check`, (d) :func:`restart_check`, (e)
+    :func:`refusal_check`; one line each.  Returns the records."""
+    t0 = time.perf_counter()
+    rec = {"bwd": scan_bwd_phase(torch, dev, seed, rglru_shapes,
+                                 rwkv_shapes, timing and dev.type == "cuda")}
+    out(bwd_line(rec["bwd"], time.perf_counter() - t0))
+    rec["train"] = train_runs(torch, dev, seed, counters, runs, steps,
+                              reduced, out)
+    t1 = time.perf_counter()
+    rec["grads"] = grad_check(torch, dev, seed, grad_layers, grad_batch,
+                              grad_seq, reduced)
+    out("train: gradients, kernel path vs plain path (f32 copies at full "
+        "width, " + "; ".join(
+            f"{a} {g['layers']} layers, {g['leaves']} leaves: worst leaf "
+            f"{g['err']:.3e} of max|g| (limit {g['limit']:.3e}: the two "
+            f"plain paths {g['noise']:.3e}, two plain runs {g['rerun']:.3e}"
+            f"), loss {g['loss']:.6f} vs plain "
+            f"{g['plain_loss']:.6f} / exact {g['exact_loss']:.6f}"
+            for a, g in rec["grads"].items())
+        + f"; {grad_batch} x {grad_seq} tokens) "
+        f"({time.perf_counter() - t1:.1f} s)")
+    r = rec["restart"] = restart_check(torch, dev, seed, reduced)
+    out(f"train: crash and restart ({MODEL_ARCH}, {RESTART}): resumed from "
+        f"step {r['resume']}, final loss {r['final']:.6f} vs uninterrupted "
+        f"{r['clean']:.6f} (|diff| {r['diff']:.3e}, limit {r['limit']:.3e}); "
+        f"the crashed run {r['crashed_s']:.1f} s, the resumed one "
+        f"{r['resumed_s']:.1f} s, a checkpoint {r['ckpt_bytes']} bytes, "
+        f"{r['free']} bytes free ({r['seconds']:.1f} s)")
+    refusal_check(torch, dev)
+    out(f"train: flash_attention under grad raises, without grad runs; "
+        f"train phase {time.perf_counter() - t0:.1f} s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def bwd_line(rec, seconds):
+    rg, r6 = rec["rglru_scan_bwd"], rec["rwkv6_scan_bwd"]
+    line = (f"kernels: rglru_scan_bwd == plain backward bit for bit on "
+            f"{rg['checked']} launches (and == autograd through the plain "
+            f"forward below the first shape); rwkv6_scan_bwd on "
+            f"{r6['checked']} launches within {BWD_NOISE_RATIO}x the f32 "
+            f"plain backward's error against f64 (worst ratio "
+            f"{r6['worst_ratio']:.3f}; vs autograd through the exact scan "
+            f"{r6['autograd_ratio']:.3f}), max_abs_err vs plain "
+            f"{r6['max_abs_err']} ({seconds:.1f} s)")
+    if "ms" not in rg:
+        return line + "; timing not measured"
+    for name, r in rec.items():
+        line += f"; {name}: " + ", ".join(
+            f"{r[p + 'shape']} ms {r[p + 'ms']:.6f} plain_ms "
+            f"{r[p + 'plain_ms']:.6f} bound_ms {r[p + 'bound_ms']:.6f} "
+            f"({r[p + 'bound_by']}: {r[p + 'bytes']} bytes, "
+            f"{r[p + 'flop']:.4e} FLOP) peak {r[p + 'peak_bytes']} bytes"
+            for p in ("", "serve_")) + " library_ms None"
+    return line + (f"; rwkv6_scan_bwd scratch at {r6['shape']}: "
+                   f"{r6['scratch_bytes']} bytes")
+
+
 def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES,
         n_cases=KERNEL_CASES,
@@ -4904,8 +5396,11 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         rwkv_shapes=RWKV_SHAPES, rglru_shapes=RGLRU_SHAPES,
         rwkv_batch=RWKV_BATCH, rwkv_seq=RWKV_SEQ, rg_seq=RG_SEQ,
         struct_per=STRUCT_PER_SESSION, n_mega_lists=MEGA_LISTS, timing=True,
-        hubert_frames=HUBERT_FRAMES, out=print):
-    """Phases 2–18; returns the kernel records and each path's stats.
+        hubert_frames=HUBERT_FRAMES, train_runs=TRAIN_RUNS,
+        train_steps=TRAIN_STEPS, bwd_rglru_shapes=RGLRU_BWD_SHAPES,
+        bwd_rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
+        grad_seq=GRAD_SEQ, out=print):
+    """Phases 2–23; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
     wrappers run their plain versions.)"""
@@ -4918,7 +5413,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     from repro_torch.kernels import (heap_insert, heap_kmin,
                                      heap_sift, label_prop, sorted_merge)
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.linear_scan import rglru_scan, rwkv6_scan
+    from repro_torch.kernels.linear_scan import (rglru_scan, rglru_scan_bwd,
+                                                 rwkv6_scan, rwkv6_scan_bwd)
 
     dev = torch.device(dev_name)
     t_run = time.perf_counter()
@@ -4928,7 +5424,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                 "label_prop": label_prop.propagate,
                 "sorted_merge": sorted_merge.merge_compact_sharded,
                 "flash_attention": flash_attention,
-                "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan}
+                "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan,
+                "rwkv6_scan_bwd": rwkv6_scan_bwd,
+                "rglru_scan_bwd": rglru_scan_bwd}
 
     if dev.type == "cuda":
         build_line(out)
@@ -5138,7 +5636,18 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
        name="recurrentgemma", arch=RG_ARCH, n_layers=RG_LAYERS, tag=17,
        prepare=slow_decay, **serving)
     family_phases(lm, model_seq, hubert_frames, serving)
-    out(f"run: phases 2-22 in {time.perf_counter() - t_run:.1f} s")
+    tr = train_phase(torch, dev, seed, counters, runs=train_runs,
+                     steps=train_steps, rglru_shapes=bwd_rglru_shapes,
+                     rwkv_shapes=bwd_rwkv_shapes, grad_layers=grad_layers,
+                     grad_seq=grad_seq, reduced=model_reduced,
+                     timing=timing, out=out)
+    results["train"] = tr["train"]
+    for name, r in tr["bwd"].items():
+        checked.calls[name] = r["checked"]
+        checked.max_abs_err[name] = r["max_abs_err"]
+        if timing:
+            times[name] = r
+    out(f"run: phases 2-23 in {time.perf_counter() - t_run:.1f} s")
 
     paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve"),
              "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve"),
@@ -5148,8 +5657,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
              "sorted_merge": ("map", "sketch", "serve"),
              "flash_attention": ("model", "gemma2", "recurrentgemma",
                                  "llama4", "vision", "hubert"),
-             "rwkv6_scan": ("rwkv6",),
-             "rglru_scan": ("recurrentgemma",)}
+             "rwkv6_scan": ("rwkv6", "train"),
+             "rglru_scan": ("recurrentgemma", "train"),
+             "rwkv6_scan_bwd": ("train",),
+             "rglru_scan_bwd": ("train",)}
     kernels = []
     for name in counters:
         t = times.get(name, {})
@@ -5191,6 +5702,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         if name == "rglru_scan":
             rec.update({k: t.get(k) for k in (
                 "prefill_shape", "prefill_ms", "prefill_bound_ms")})
+        if name in ("rwkv6_scan_bwd", "rglru_scan_bwd"):
+            rec.update({k: t.get(k) for k in (
+                "shape", "peak_bytes", "serve_shape", "serve_ms",
+                "serve_plain_ms", "serve_bound_ms", "scratch_bytes")})
         if name in ("rwkv6_scan", "rglru_scan"):
             p = paths[name][0]
             rec["shape"] = t.get("shape")
@@ -5254,6 +5769,21 @@ def scan_only(torch, seed):
     ls = linear_scan_phase(torch, torch.device("cuda"), seed, RWKV_SHAPES,
                            RGLRU_SHAPES, True)
     print(scan_line(ls, time.perf_counter() - t0, True))
+
+
+def train_only(torch, seed):
+    """``--train``: phase 2 and phase 23 alone, for work on the training
+    path and the backward kernels."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import (rglru_scan, rglru_scan_bwd,
+                                                 rwkv6_scan, rwkv6_scan_bwd)
+
+    build_line()
+    counters = {"flash_attention": flash_attention,
+                "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan,
+                "rwkv6_scan_bwd": rwkv6_scan_bwd,
+                "rglru_scan_bwd": rglru_scan_bwd}
+    train_phase(torch, torch.device("cuda"), seed, counters)
 
 
 def families_only(torch, seed):
@@ -5342,6 +5872,9 @@ def main(argv=None) -> int:
     ap.add_argument("--families", action="store_true",
                     help="only the build and the llama4, deepseek, vision "
                          "and hubert phases (phases 2 and 19-22)")
+    ap.add_argument("--train", action="store_true",
+                    help="only the build and the training phase (phases 2 "
+                         "and 23)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -5392,6 +5925,9 @@ def main(argv=None) -> int:
         return 0
     if args.families:
         families_only(torch, args.seed)
+        return 0
+    if args.train:
+        train_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

@@ -138,7 +138,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16), each contiguous in its last dim (other strides are taken as
     they are), ``hd`` and ``hd_v`` at most 256.  In bf16 the head widths
     are multiples of 8 and each base pointer and stride 16-byte aligned;
-    any other layout raises ``ValueError`` (no other path takes it)."""
+    any other layout raises ``ValueError`` (no other path takes it).
+
+    It has no backward, as the reference's Pallas kernel has none: on
+    either device, a call while autograd records and q, k or v requires
+    grad raises ``RuntimeError`` instead of returning a result whose
+    gradient would be cut (training runs ``attention_impl="xla_chunked"``,
+    as the reference's trainer does)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward (the reference's Pallas kernel "
+            "has none; ROADMAP D1c): train with "
+            "attention_impl='xla_chunked', or call it under torch.no_grad()")
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, cap=cap,

@@ -17,6 +17,20 @@ for all batches, heads and channels) or raises, a CPU tensor runs the
 plain version.  ``rwkv6_scan.launches`` and ``rglru_scan.launches`` count
 kernel launches.
 
+**Gradients.**  On CUDA tensors both scans are ``torch.autograd.Function``s
+whose backward is a hand-written kernel too (``csrc/rwkv6_scan_bwd.cu``,
+``csrc/rglru_scan_bwd.cu``): :func:`rwkv6_scan_bwd` and
+:func:`rglru_scan_bwd`, counted in ``rwkv6_scan_bwd.launches`` and
+``rglru_scan_bwd.launches``.  The reference's Pallas kernels have no
+backward; its trainer differentiates the models' own scans.  Each
+backward has a plain version beside it (``*_bwd_plain``, a step-by-step
+reverse recurrence), which the tests and ``chip_smoke.py`` hold the
+kernels to; on CPU tensors the forwards' plain versions are differentiated
+by autograd.  The Functions take bf16 or f32 inputs as the forwards do and
+return each gradient in its input's dtype, accumulated in f32.  A forward
+that ``torch.utils.checkpoint`` runs again in the backward pass (the
+models' ``remat``) launches, and counts, again.
+
 The plain versions compute what the reference's Pallas kernels compute
 (``src/repro/kernels/linear_scan/kernel.py``):
 
@@ -136,6 +150,89 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     return hs, h
 
 
+BWD_CHUNK = 64   # rwkv6_scan_bwd: steps between the saved states
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is in f64 (a reference run at double
+    precision, for the checks' noise floors)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _rwkv6_step(state, w, k, v):
+    """``S = w∘S + k⊗v``: the product, the outer product and the sum as
+    three rounded operations, as ``rwkv6_scan_bwd.cu`` writes them."""
+    return w[..., None] * state + k[..., None] * v[..., None, :]
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dsT=None, *,
+                         chunk: int = BWD_CHUNK):
+    """The gradients of :func:`rwkv6_scan` given ``dy`` (B, S, H, hd) and
+    ``dsT`` (B, H, hd, hd; None is zeros), in f32 (f64 from f64 inputs):
+    (dr, dk, dv, dw, du, dstate0).  A reverse sweep over t with dS (hd x hd) the gradient of
+    S_t, S_{t-1} recomputed from the state saved every ``chunk`` steps
+    (never recovered by dividing by w, which may be 0):
+
+    - ``G = dS_t + (r_t∘u)⊗dy_t``, the gradient of the step's ``k_t⊗v_t``;
+    - ``dr_t = (S_{t-1} + u∘k_t⊗v_t)·dy_t``, ``dk_t = G·v_t``,
+      ``dv_t = Gᵀ·k_t``, ``dw_t[i] = Σ_j dS_t[i,j] S_{t-1}[i,j]``;
+    - ``du += r_t∘k_t (v_t·dy_t)``, over time, then over the batch;
+    - ``dS_{t-1} = w_t∘dS_t + r_t⊗dy_t``; the last is ``dstate0``."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, dyf, uf = (_f32(t) for t in (r, k, v, w, dy, u))
+    dt, dev = rf.dtype, r.device
+    dS = (torch.zeros((B, H, hd, hd), dtype=dt, device=dev)
+          if dsT is None else _f32(dsT).clone())
+    state = _f32(state0)
+    saved = []
+    for t in range(S):
+        if t % chunk == 0:
+            saved.append(state)
+        state = _rwkv6_step(state, wf[:, t], kf[:, t], vf[:, t])
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=dt, device=dev)
+                      for _ in range(4))
+    du = torch.zeros((B, H, hd), dtype=dt, device=dev)
+    for c in reversed(range(len(saved))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        states = [saved[c]]                    # S_{t-1} for t in [t0, t1)
+        for t in range(t0, t1 - 1):
+            states.append(_rwkv6_step(states[-1], wf[:, t], kf[:, t],
+                                      vf[:, t]))
+        for t in reversed(range(t0, t1)):
+            sp = states[t - t0]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (rf, kf, vf, wf, dyf))
+            vdy = (vt * dyt).sum(-1, keepdim=True)
+            g = dS + (rt * uf)[..., None] * dyt[..., None, :]
+            kv = (uf * kt)[..., None] * vt[..., None, :]
+            dr[:, t] = ((sp + kv) * dyt[..., None, :]).sum(-1)
+            dk[:, t] = (g * vt[..., None, :]).sum(-1)
+            dv[:, t] = (g * kt[..., None]).sum(-2)
+            dw[:, t] = (dS * sp).sum(-1)
+            du += rt * kt * vdy
+            dS = wt[..., None] * dS + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), dS
+
+
+def rglru_scan_bwd_plain(a, h0, hs, dhs, dhT=None):
+    """The gradients of :func:`rglru_scan` given ``hs`` (its output),
+    ``dhs`` (B, S, R) and ``dhT`` (B, R; None is zeros), in f32 (f64 from
+    f64 inputs): (da, db, dh0).  With ``g_{S-1} = dhs_{S-1} + dhT`` and ``g_t = dhs_t +
+    a_{t+1}·g_{t+1}``: ``db_t = g_t``, ``da_t = g_t·h_{t-1}`` (``h_{-1}``
+    = h0) and ``dh0 = a_0·g_0``; each sum and product one rounded
+    operation, as ``rglru_scan_bwd.cu``'s ``__fadd_rn`` / ``__fmul_rn``,
+    so the two are bit-equal."""
+    af, dhf = _f32(a), _f32(dhs)
+    hp = torch.cat([_f32(h0)[:, None], _f32(hs)[:, :-1]], dim=1)
+    g = (torch.zeros_like(af[:, 0]) if dhT is None else _f32(dhT).clone())
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    for t in reversed(range(af.shape[1])):
+        g = g + dhf[:, t]
+        db[:, t] = g
+        da[:, t] = g * hp[:, t]
+        g = af[:, t] * g
+    return da, db, g
+
+
 def _strides(t: torch.Tensor, name: str, n: int):
     if t.stride(-1) != 1:
         raise ValueError(f"{name} must be contiguous in its last dim")
@@ -161,10 +258,26 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0, chunk=chunk)
     body = "step" if r.shape[1] < SHORT_SEQ else "chunk"
-    y, sT = rwkv6_scan_body(body, r, k, v, w, u, state0)
+    y, sT = _RWKV6Scan.apply(r, k, v, w, u, state0, body)
     if r.shape[0] * r.shape[2]:        # no launch for an empty grid
         rwkv6_scan.launches += 1
     return y, sT
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """:func:`rwkv6_scan` on the card, its backward the
+    :func:`rwkv6_scan_bwd` kernel."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0, body):
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        return rwkv6_scan_body(body, r, k, v, w, u, state0)
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        ins = ctx.saved_tensors
+        grads = rwkv6_scan_bwd(*ins, dy, dsT)
+        return (*(g.to(x.dtype) for g, x in zip(grads, ins)), None)
 
 
 def rwkv6_scan_body(body: str, r: torch.Tensor, k: torch.Tensor,
@@ -218,6 +331,29 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     4 bytes at a time: :func:`rglru_rows_aligned`)."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0, chunk=chunk, block_r=block_r)
+    return _RGLRUScan.apply(a, b, h0)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """:func:`rglru_scan` on the card, its backward the
+    :func:`rglru_scan_bwd` kernel."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        hs, hT = _rglru_launch(a, b, h0)
+        ctx.save_for_backward(a, h0, hs)
+        ctx.b_dtype = b.dtype
+        return hs, hT
+
+    @staticmethod
+    def backward(ctx, dhs, dhT):
+        a, h0, hs = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd(a, h0, hs, dhs, dhT)
+        return da.to(a.dtype), db.to(ctx.b_dtype), dh0.to(h0.dtype)
+
+
+def _rglru_launch(a, b, h0):
+    """One ``rglru_scan`` launch on CUDA tensors, counted."""
     dev = _on_card(a)
     B, S, R = a.shape
     if b.device != dev or tuple(b.shape) != (B, S, R):
@@ -239,10 +375,107 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     return hs, hT
 
 
+def _bwd_input(t: torch.Tensor, name: str, shape, dev) -> torch.Tensor:
+    """``t`` as a contiguous f32 tensor of ``shape`` on ``dev``."""
+    if t.device != dev or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be a {tuple(shape)} tensor on {dev}, "
+                         f"got {tuple(t.shape)} on {t.device}")
+    return t.float().contiguous()
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dsT=None):
+    """The gradients of :func:`rwkv6_scan` (arguments and results as
+    :func:`rwkv6_scan_bwd_plain`).  On CUDA tensors: one launch of
+    ``csrc/rwkv6_scan_bwd.cu`` on the current stream, one CTA a (batch,
+    head) sweeping the sequence twice — forward, saving the state every
+    ``BWD_CHUNK`` steps, then backward a chunk at a time from its saved
+    state — with its scratch allocated here: 16 KB a (batch, head) a
+    saved state, ceil(S / BWD_CHUNK) of them, plus BWD_CHUNK states a
+    (batch, head) for the chunk being swept.  r, k and v of one dtype
+    (f32 or bf16) read through their strides like the forward's; the
+    rest cast to f32."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dsT)
+    dev = _on_card(r)
+    B, S, H, hd = r.shape
+    shape = (B, S, H, hd)
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != r.dtype:
+            raise ValueError(f"{name} must be a {shape} {r.dtype} tensor on "
+                             f"{dev}")
+    if r.dtype not in _DTYPES:
+        raise ValueError(f"r, k and v must be float32 or bfloat16, got "
+                         f"{r.dtype}")
+    if not 0 < hd <= MAX_HEAD:
+        raise ValueError(f"rwkv6_scan_bwd takes head dims up to {MAX_HEAD},"
+                         f" got {hd}")
+    w = _bwd_input(w, "w", shape, dev)
+    dy = _bwd_input(dy, "dy", shape, dev)
+    u = _bwd_input(u, "u", (H, hd), dev)
+    s0 = _bwd_input(state0, "state0", (B, H, hd, hd), dev)
+    dsT = (torch.zeros_like(s0) if dsT is None
+           else _bwd_input(dsT, "dsT", (B, H, hd, hd), dev))
+    grads = [torch.empty(shape, dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    du = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    if B * H == 0:
+        return (*grads, du.sum(0), ds0)
+    n_saved = -(-S // BWD_CHUNK)
+    saved = torch.empty((B * H, max(n_saved, 1), MAX_HEAD * MAX_HEAD),
+                        dtype=torch.float32, device=dev)
+    states = torch.empty((B * H, BWD_CHUNK, MAX_HEAD * MAX_HEAD),
+                         dtype=torch.float32, device=dev)
+    rc = _build.library().rwkv6_scan_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), dy.data_ptr(), dsT.data_ptr(),
+        *(g.data_ptr() for g in grads), du.data_ptr(), ds0.data_ptr(),
+        saved.data_ptr(), states.data_ptr(), B, S, H, hd,
+        *_strides(r, "r", 3), *_strides(k, "k", 3), *_strides(v, "v", 3),
+        _DTYPES[r.dtype], _build.stream(dev))
+    _build.check(rc, "rwkv6_scan_bwd")
+    rwkv6_scan_bwd.launches += 1
+    return (*grads, du.sum(0), ds0)
+
+
+def rglru_scan_bwd(a, h0, hs, dhs, dhT=None):
+    """The gradients of :func:`rglru_scan` (arguments and results as
+    :func:`rglru_scan_bwd_plain`).  On CUDA tensors: one launch of
+    ``csrc/rglru_scan_bwd.cu`` on the current stream, one lane a channel
+    sweeping t downward, bit-equal to the plain version; the inputs cast
+    to contiguous f32."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_plain(a, h0, hs, dhs, dhT)
+    dev = _on_card(a)
+    B, S, R = a.shape
+    a = _bwd_input(a, "a", (B, S, R), dev)
+    hs = _bwd_input(hs, "hs", (B, S, R), dev)
+    dhs = _bwd_input(dhs, "dhs", (B, S, R), dev)
+    h0 = _bwd_input(h0, "h0", (B, R), dev)
+    dhT = (torch.zeros_like(h0) if dhT is None
+           else _bwd_input(dhT, "dhT", (B, R), dev))
+    da = torch.empty((B, S, R), dtype=torch.float32, device=dev)
+    db = torch.empty((B, S, R), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, R), dtype=torch.float32, device=dev)
+    if B * R == 0:
+        return da, db, dh0
+    rc = _build.library().rglru_scan_bwd_launch(
+        a.data_ptr(), h0.data_ptr(), hs.data_ptr(), dhs.data_ptr(),
+        dhT.data_ptr(), da.data_ptr(), db.data_ptr(), dh0.data_ptr(), B, S,
+        R, _build.stream(dev))
+    _build.check(rc, "rglru_scan_bwd")
+    rglru_scan_bwd.launches += 1
+    return da, db, dh0
+
+
 rwkv6_scan.launches = 0
 rglru_scan.launches = 0
+rwkv6_scan_bwd.launches = 0
+rglru_scan_bwd.launches = 0
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_body",
            "rglru_scan", "rglru_scan_plain", "rglru_rows_aligned",
+           "rwkv6_scan_bwd", "rwkv6_scan_bwd_plain", "rglru_scan_bwd",
+           "rglru_scan_bwd_plain", "BWD_CHUNK",
            "MAX_HEAD", "SHORT_SEQ", "RGLRU_CHANNELS", "RGLRU_STEPS",
            "RGLRU_STAGES", "RGLRU_ALIGN_BYTES"]

@@ -3,8 +3,10 @@
 The port of the reference's ``models/lm.py``.  The batch dict reaches
 ``model_apply`` as it is: ``tokens`` (or HuBERT's ``frames``),
 ``labels``, ``mask`` and the VLM's ``image_embeds``.  ``lm_loss_chunked`` is a
-loop over sequence chunks (the reference's checkpointed ``lax.scan``: no
-gradient here, so nothing to recompute); ``cfg.loss_chunk`` picks it in
+loop over sequence chunks, the reference's checkpointed ``lax.scan``:
+under autograd each chunk's cross-entropy runs under
+``torch.utils.checkpoint``, so no chunk's logits outlive it and the
+backward pass recomputes them; ``cfg.loss_chunk`` picks it in
 :func:`loss_fn`, as in the reference.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import dense, softcap, unembed
@@ -56,10 +59,13 @@ def lm_loss_chunked(params, cfg: ArchConfig, x: torch.Tensor, labels, mask,
         mask = torch.nn.functional.pad(mask, (0, pad))
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
     for c in range((S + pad) // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        s_nll, s_cnt = _fused_chunk_xent(params, cfg, x[:, sl], labels[:, sl],
-                                         mask[:, sl])
+        args = (params, cfg, x[:, sl], labels[:, sl], mask[:, sl])
+        s_nll, s_cnt = (checkpoint(_fused_chunk_xent, *args,
+                                   use_reentrant=False) if remat
+                        else _fused_chunk_xent(*args))
         nll = nll + s_nll
         cnt = cnt + s_cnt
     return nll / torch.clamp(cnt, min=1.0)

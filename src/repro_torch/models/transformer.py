@@ -19,9 +19,13 @@ cache being ``{"mixer": ..., "ffn": ...}`` (K/V, MLA's ``{"c", "kr"}``,
 ``rwkv_cm``, else ``{}``), ``cache["prefix"]`` the prefix's (``{}``
 without one).  The VLM's cross layers attend ``batch["image_embeds"]``.
 The model runs the stack as a Python loop over periods (the reference's
-``lax.scan``; ``use_scan`` and ``remat`` change nothing in a forward pass
-without a gradient).  The reference's ``ShardCtx`` is not carried over:
-the port has one device (A9).
+``lax.scan``; ``use_scan`` changes nothing).  With ``cfg.remat``, a
+train-mode forward under autograd runs each full period's body under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``):
+only the period's input is kept, and the body runs again in the backward
+pass, so a kernel it launches counts a second launch there.  Without a
+gradient ``remat`` changes nothing.  The reference's ``ShardCtx`` is not
+carried over: the port has one device (A9).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.batched_pq import resolve_device
 from . import attention, mla, moe, recurrent
@@ -253,12 +258,18 @@ def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         x = block_apply(params["prefix"], cfg, _prefix_spec(cfg), x,
                         cache=cache["prefix"] if cache is not None else None,
                         **kw)
-    for i in range(cfg.n_full_periods):
+    def period(x, i):
         for j, lspec in enumerate(cfg.period):
             cj = (_index(cache["stack"][j], i) if cache is not None
                   else None)
             x = block_apply(_index(params["stack"][j], i), cfg, lspec, x,
                             cache=cj, **kw)
+        return x
+
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    for i in range(cfg.n_full_periods):
+        x = (checkpoint(period, x, i, use_reentrant=False) if remat
+             else period(x, i))
     for j in range(cfg.n_remainder):
         lspec = cfg.period[j % len(cfg.period)]
         cj = cache["rem"][j] if cache is not None else None

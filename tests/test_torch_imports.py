@@ -45,6 +45,11 @@ MODULES = [
     "repro_torch.models.lm", "repro_torch.models.convert",
     "repro_torch.configs", "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.serving", "repro_torch.serving.scheduler",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.compress",
+    "repro_torch.optim.tree", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint", "repro_torch.launch.steps",
+    "repro_torch.launch.train",
 ] + [f"repro_torch.configs.{a}" for a in (
     "deepseek_v2_lite_16b", "gemma2_2b", "hubert_xlarge", "internlm2_20b",
     "llama4_scout_17b_a16e", "llama_3_2_vision_11b", "qwen2_0_5b",
@@ -141,6 +146,22 @@ print("refused")
     assert r.returncode == 0 and "refused" in r.stdout, r.stdout + r.stderr
 
 
+def test_trainer_refuses_to_run_without_cuda():
+    """``train`` and its CLI take ``device=None`` / no ``--device`` as
+    the card and raise without one."""
+    code = """
+import pytest
+from repro_torch.launch.train import main, train
+with pytest.raises(RuntimeError, match="no CUDA device"):
+    train("qwen2_0_5b", steps=1)
+with pytest.raises(RuntimeError, match="no CUDA device"):
+    main(["--arch", "qwen2_0_5b", "--steps", "1"])
+print("refused")
+"""
+    r = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0 and "refused" in r.stdout, r.stdout + r.stderr
+
+
 def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
     """Without a card — or copied away from the repository — the script
     exits non-zero before printing any result."""
@@ -156,7 +177,8 @@ def test_kernel_sources_ship_with_the_package():
     srcs = sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
     assert srcs == ["flash_attention.cu", "heap_insert.cu", "heap_kmin.cu",
                     "heap_sift.cu", "label_prop.cu", "rglru_scan.cu",
-                    "rwkv6_scan.cu", "sorted_merge.cu"]
+                    "rglru_scan_bwd.cu", "rwkv6_scan.cu",
+                    "rwkv6_scan_bwd.cu", "sorted_merge.cu"]
     for name in srcs:
         text = (PORT / "kernels" / "csrc" / name).read_text()
         assert "src/repro/kernels/" in text          # names what it replaces
