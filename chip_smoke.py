@@ -115,6 +115,34 @@ each printing a line:
    conservation of the total and of the distinct count, the 2^24
    exactness precondition, and a 100-batch replay through the kernel pass
    and the plain pass against ``SequentialSketch``.
+   ``placement`` (after phase 11) — the placement layer (DESIGN.md §18)
+   on a one-rank NCCL group (one card allows no other mesh; the machine
+   has no network, so ``NCCL_SOCKET_IFNAME=lo`` unless set, printed):
+   stacked and ``MeshPlacement`` twins, each built the same way, (a) of
+   the K = 4 PQ at 4,000,000 keys: 240 seeded batches, answers and
+   gathered heaps bit-equal after every batch and equal to
+   ``SequentialHeap``, the heap kernels' launches equal, every 20th mesh
+   pass under ``one_fetch``; ``pc_sharded_priority_queue(placement=)``
+   under 8 threads x 200 ops, conservation and the heap property; (d)
+   12 ``mixed_rounds`` lists of up to 8 rows through both PQ twins,
+   bit-equal, no graph captured on the mesh twin; (f) one ``all_gather``
+   of (4, 16) f32 and of (1, 10⁶) i32 and one ``all_reduce`` timed on a
+   twin's group; (b) of the map at 10⁶ keys, K = 4: 60 batches of the
+   bench mix, answers (``range_sum`` included) and gathered tables
+   bit-equal, ``sorted_merge``'s launches equal, ``mixed_rounds``; (c)
+   of the graph built from the graph phase's state (10⁶ vertices, not
+   prepopulated again): 30 batches with deletes (full rebuilds), every
+   field bit-equal, the labels equal to the union-find oracle,
+   ``label_prop`` launched 3 times a mesh read pass that may rebuild
+   (the block fixpoint, the star merge, the contracted merge), once an
+   insert-only one (the merge: the host's bound skips the collective),
+   and 2 times a stacked one; (e) the serve CLI with ``--mesh-shards 4``
+   on ``pq``, ``map`` and ``graph``, each request served once, on ``pq``
+   under ``--faults standard`` too (a takeover rebuilds the placed
+   deadline PQ on its group), ``decode`` with its deadline PQ placed, the
+   other structures refused.  ``python3
+   chip_smoke.py --placement`` runs phase 2 and this phase alone (the
+   graph then built from numpy, :func:`tree_graph`).
 
 12. ``flash_attention`` kernel checks — the kernels (bf16: tensor cores;
    f32: CUDA cores) against their plain version tiled like the kernel
@@ -1898,6 +1926,7 @@ def graph_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
     }
     stats["replayed"], stats["replay_rebuilds"], stats["replay_merges"] = \
         graph_replay(torch, g, tree, n_replay, seed)
+    stats["keep"] = (g, tree)             # the placement phase's twins
     return stats
 
 
@@ -4103,30 +4132,32 @@ def structure_serving(torch, dev, seed, counters, init, *, per, batch,
                               for k in HEAP}, **clock.summary()}
 
 
-def cli_serving(torch, dev, counters):
+def cli_serving(torch, dev, counters, runs=None):
     """Part d: ``serve.main`` once for each registered workload at the
     registry's ``serve_kw`` sizes (--scheduler pc-async), once on pq with
     --faults standard, and on pq with --megapass, plain and with --faults
-    standard; each run must serve every request exactly once (the
-    executor's batches counted by request identity), the faults runs must
-    show a combiner takeover.  The injected kill's traceback is
-    counted (``threading.excepthook``), not printed."""
+    standard (or the ``(name, argv)`` pairs of ``runs``); each run must
+    serve every request exactly once (the executor's batches counted by
+    request identity), the faults runs must show a combiner takeover.
+    The injected kill's traceback is counted (``threading.excepthook``),
+    not printed."""
     import io
 
     from repro_torch.core import substrate
     from repro_torch.core.faults import InjectedCombinerKill
     from repro_torch.launch import serve
 
-    runs = [(w, ["--workload", w, "--scheduler", "pc-async"])
-            for w in substrate.names()]
-    runs.append(("pq faults", ["--workload", "pq", "--scheduler",
-                               "pc-async", "--faults", "standard",
-                               "--requests", str(CLI_FAULT_REQUESTS)]))
-    runs.append(("pq megapass", ["--workload", "pq", "--scheduler",
-                                 "pc-async", "--megapass"]))
-    runs.append(("pq megapass faults", [
-        "--workload", "pq", "--scheduler", "pc-async", "--megapass",
-        "--faults", "standard", "--requests", str(CLI_FAULT_REQUESTS)]))
+    if runs is None:
+        runs = [(w, ["--workload", w, "--scheduler", "pc-async"])
+                for w in substrate.names()]
+        runs.append(("pq faults", ["--workload", "pq", "--scheduler",
+                                   "pc-async", "--faults", "standard",
+                                   "--requests", str(CLI_FAULT_REQUESTS)]))
+        runs.append(("pq megapass", ["--workload", "pq", "--scheduler",
+                                     "pc-async", "--megapass"]))
+        runs.append(("pq megapass faults", [
+            "--workload", "pq", "--scheduler", "pc-async", "--megapass",
+            "--faults", "standard", "--requests", str(CLI_FAULT_REQUESTS)]))
     real_call = serve.StructureExecutor.__call__
     real_hook, kills = threading.excepthook, []
 
@@ -5384,6 +5415,550 @@ def bwd_line(rec, seconds):
                    f"{r6['scratch_bytes']} bytes")
 
 
+# ---------------------------------------------------------------------------
+# placement: the mesh twins (DESIGN.md §18) on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+PLACE_K = 4                    # the pq-sharded, map and sketch phases' K
+PLACE_MAP_BATCHES = 60         # the map twins' seeded batches
+PLACE_GRAPH_BATCHES = 30       # the graph twins' seeded batches
+PLACE_ROUND_LISTS = 12         # mixed_rounds lists of up to PLACE_ROWS rows
+PLACE_ROWS = 8
+PLACE_COLL_CALLS = 50          # collectives timed a kind (CUDA events)
+PLACE_FETCH_EVERY = 20         # every 20th mesh pass runs under one_fetch
+
+
+def place_mesh(dev, k=PLACE_K):
+    """``MeshPlacement(make_combining_mesh(k))``: on the card a one-rank
+    NCCL group over a ``FileStore`` (the world is this process)."""
+    from repro_torch.core.placement import MeshPlacement
+    from repro_torch.launch.mesh import make_combining_mesh
+
+    return MeshPlacement(make_combining_mesh(k, device=dev))
+
+
+def _timed(dev, torch, fn):
+    """``fn()`` and its wall seconds (synchronised on the card)."""
+    t0 = time.perf_counter()
+    got = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return got, time.perf_counter() - t0
+
+
+def _heap_delta(counters, before, keys):
+    return {k: counters[k].launches - before[k] for k in keys}
+
+
+def place_pq(torch, dev, seed, pl, init, cap, counters, n_batches, threads,
+             ops):
+    """Part a: stacked and mesh twins of ``ShardedBatchedPQ`` from the same
+    keys take the same seeded batches (the pq phases' replay mix): answers
+    and the (gathered) heaps bit-equal after every batch, both equal to
+    ``SequentialHeap``; the heap kernels' launches of the two twins equal;
+    every 20th mesh pass under :func:`one_fetch`; then
+    ``pc_sharded_priority_queue(placement=...)`` under ``threads`` clients,
+    conservation and the heap property checked."""
+    from repro_torch.core import batched_pq as bpq
+    from repro_torch.core.pc_pq import pc_sharded_priority_queue
+    from repro_torch.core.seq_pq import SequentialHeap
+    from repro_torch.core.sharded_pq import ShardedBatchedPQ
+
+    twins = {"stacked": ShardedBatchedPQ(cap, C_MAX, n_shards=PLACE_K,
+                                         values=init, device=dev),
+             "mesh": ShardedBatchedPQ(cap, C_MAX, n_shards=PLACE_K,
+                                      values=init, placement=pl)}
+    st, mh = twins["stacked"], twins["mesh"]
+    check(mh.state.a.shape[0] == PLACE_K // pl.n_devices
+          and mh.state.a.device.type == dev.type,
+          "placement pq: the mesh twin does not hold K / D rows")
+    check(_heap_bits_equal(torch, st.state, mh.global_state()),
+          "placement pq: twins differ at init")
+    oracle = SequentialHeap()
+    oracle.a = [float("-inf")] + st.values()
+    rng = np.random.default_rng([seed, 40])
+    secs = dict.fromkeys(twins, 0.0)
+    launches = {name: dict.fromkeys(HEAP, 0) for name in twins}
+    fetches = 0
+    ptr = mh.state.a.data_ptr()
+    for b in range(n_batches):
+        w = int(rng.integers(1, C_MAX + 1))
+        ne = int(rng.integers(0, w + 1))
+        head = oracle.a[1] if oracle.size else 0.0
+        fresh = rng.uniform(0, KEY_RANGE, w - ne).astype(np.float32)
+        ins = np.where(rng.random(w - ne) < 0.25, np.float32(head),
+                       fresh).tolist()
+        got = {}
+        for name, q in twins.items():
+            before = {k: counters[k].launches for k in HEAP}
+            one = (name == "mesh" and dev.type == "cuda"
+                   and b % PLACE_FETCH_EVERY == PLACE_FETCH_EVERY // 2)
+            if one:
+                fetches += 1
+            got[name], s = _timed(dev, torch, (lambda q=q: one_fetch(
+                torch, bpq, lambda: q.apply(ne, ins))) if one else (
+                    lambda q=q: q.apply(ne, ins)))
+            secs[name] += s
+            for k, v in _heap_delta(counters, before, HEAP).items():
+                launches[name][k] += v
+        want = [oracle.extract_min() for _ in range(ne)]
+        for v in ins:
+            oracle.insert(float(np.float32(v)))
+        check(_bits_list(got["mesh"]) == _bits_list(got["stacked"])
+              == _bits_list(want),
+              f"placement pq batch {b}: mesh {got['mesh']} / stacked "
+              f"{got['stacked']} / oracle {want}")
+        check(_heap_bits_equal(torch, st.state, mh.global_state()),
+              f"placement pq batch {b}: mesh heaps != stacked heaps")
+    check(launches["mesh"] == launches["stacked"],
+          f"placement pq: mesh launches {launches['mesh']} != stacked "
+          f"{launches['stacked']}")
+    check(mh.state.a.data_ptr() == ptr, "placement pq: the mesh twin's "
+                                        "rows moved (in place expected)")
+    check(sorted(oracle.a[1:]) == mh.values(),
+          "placement pq: final multiset != the oracle's")
+    out = {"batches": n_batches, "fetch_checked": fetches,
+           "launches": launches,
+           "ms_per_pass": {k: v / n_batches * 1e3 for k, v in secs.items()},
+           "twins": twins}
+
+    engine = pc_sharded_priority_queue(cap, C_MAX, n_shards=PLACE_K,
+                                       values=init, placement=pl,
+                                       device=dev)
+    before = {k: counters[k].launches for k in HEAP}
+    ins_t, ext, seconds = drive(engine, threads, ops, seed)
+    thr = _heap_delta(counters, before, HEAP)
+    check(all(v is not None for v in ext),
+          "placement pq threads: empty-queue extract")
+    lhs = np.sort(np.concatenate([init, ins_t]))
+    rhs = np.sort(np.concatenate([np.array(ext, np.float32),
+                                  np.array(engine.pq.values(), np.float32)]))
+    check(np.array_equal(lhs, rhs),
+          "placement pq threads: multiset not conserved")
+    gs = engine.pq.global_state()
+    a, sizes = gs.a.cpu().numpy(), gs.size.cpu().numpy()
+    for k in range(PLACE_K):
+        check(np.isinf(a[k, 0]) and bpq.check_heap_property(
+            a[k], int(sizes[k])),
+            f"placement pq threads: shard {k} violates the heap property")
+    check(dev.type != "cuda" or all(thr[k] > 0 for k in HEAP),
+          f"placement pq threads: heap kernels not launched: {thr}")
+    out["threads"] = {"ops": threads * ops, "seconds": seconds,
+                      "ops_per_s": threads * ops / seconds,
+                      "passes": engine.passes,
+                      "mean_batch": float(np.mean(engine.combined_sizes)),
+                      "launches": thr}
+    return out
+
+
+def place_rounds(torch, dev, seed, twins, n_lists):
+    """Part d: ``mixed_rounds`` lists of up to PLACE_ROWS rows through both
+    PQ twins (stacked: one CUDA-graph replay a dispatch on the card; mesh:
+    the rows eagerly, collectives and all): every handle's answers and the
+    heaps bit-equal, and no graph captured on the mesh twin."""
+    st, mh = twins["stacked"], twins["mesh"]
+    rng = np.random.default_rng([seed, 43])
+    secs = {"stacked": [], "mesh": []}
+    rows = []
+    for i in range(n_lists):
+        rounds = mega_rounds(rng, st, PLACE_ROWS)
+        rows.append(len(st._mixed_specs(rounds)[0]))
+        got = {}
+        for name, q in twins.items():
+            got[name], s = _timed(dev, torch, lambda q=q: [
+                _bits_list(h.result()) for h in q.mixed_rounds(rounds)])
+            secs[name].append(s * 1e3)
+        check(got["mesh"] == got["stacked"],
+              f"placement rounds list {i}: mesh answers != stacked")
+        check(_heap_bits_equal(torch, st.state, mh.global_state()),
+              f"placement rounds list {i}: mesh heaps != stacked heaps")
+    check(mh.graph_captures == 0 and mh.graph_replays == 0,
+          "placement rounds: the mesh twin captured a CUDA graph")
+    check(dev.type != "cuda" or st.graph_replays > 0,
+          "placement rounds: the stacked twin replayed no graph")
+    return {"lists": n_lists, "rows": rows,
+            "stacked_graph_replays": st.graph_replays,
+            "mesh_graph_captures": mh.graph_captures,
+            "ms_per_dispatch": {k: float(np.median(v))
+                                for k, v in secs.items()}}
+
+
+def place_map(torch, dev, seed, pl, n, counters, n_batches):
+    """Part b: stacked and mesh twins of ``ShardedMap`` over the map
+    phase's 10⁶ keys take the same seeded batches of the bench mix
+    (:func:`map_op`, 90 % reads): answers equal (``range_sum`` bit for
+    bit) and the (gathered) tables bit-equal after every batch;
+    ``sorted_merge``'s launches of the two twins equal; every 20th mesh
+    batch under :func:`one_fetch`."""
+    from repro_torch.core import batched_map as bm
+
+    rng = np.random.default_rng([seed, 15])        # the map phase's keys
+    keys = grid_keys(rng, n)
+    vals = rng.uniform(0, 10, n).astype(np.float32)
+    items = list(zip(keys.tolist(), vals.tolist()))
+    cap = shard_capacity(n + n_batches * 3 * C_MAX + 2, PLACE_K)
+    t0 = time.perf_counter()
+    twins = {name: bm.ShardedMap(cap, C_MAX, n_shards=PLACE_K,
+                                 key_range=MAP_KEY_RANGE, items=items, **kw)
+             for name, kw in (("stacked", dict(device=dev)),
+                              ("mesh", dict(placement=pl)))}
+    setup_s = time.perf_counter() - t0
+    st, mh = twins["stacked"], twins["mesh"]
+    check(_states_bit_equal(torch, st.state, mh.global_state()),
+          "placement map: twins differ at init")
+    rng = np.random.default_rng([seed, 41])
+    secs = dict.fromkeys(twins, 0.0)
+    launches = dict.fromkeys(twins, 0)
+    fetches = 0
+    for b in range(n_batches):
+        ops = [map_op(rng, keys, n) for _ in range(int(rng.integers(
+            1, 3 * C_MAX + 1)))]
+        um = [(m, i) for m, i in ops if m in bm._UPDATE_CODE]
+        rm = [(m, i) for m, i in ops if m in bm._READ_CODE]
+        got = {}
+        for name, m in twins.items():
+            before = counters["sorted_merge"].launches
+
+            def step(m=m):
+                h = m.update_batch_async([x for x, _ in um],
+                                         [y for _, y in um])
+                r = m.read_batch([x for x, _ in rm], [y for _, y in rm])
+                return h, r
+
+            one = (name == "mesh" and dev.type == "cuda"
+                   and b % PLACE_FETCH_EVERY == PLACE_FETCH_EVERY // 2)
+            if one:
+                fetches += 1
+            (h, r), s = _timed(dev, torch, (lambda: one_fetch(
+                torch, bm, step)) if one else step)
+            got[name] = (h.result(), r)
+            secs[name] += s
+            launches[name] += counters["sorted_merge"].launches - before
+        check(got["mesh"] == got["stacked"],
+              f"placement map batch {b}: mesh answers != stacked")
+        check(_states_bit_equal(torch, st.state, mh.global_state()),
+              f"placement map batch {b}: mesh tables != stacked tables")
+    check(launches["mesh"] == launches["stacked"]
+          and (dev.type != "cuda" or launches["mesh"] > 0),
+          f"placement map: sorted_merge launches {launches}")
+    rounds = []
+    for r in range(PLACE_ROWS):
+        ops = [map_op(rng, keys, n) for _ in range(C_MAX)]
+        kind = "update" if r % 2 == 0 else "read"
+        code = bm._UPDATE_CODE if kind == "update" else bm._READ_CODE
+        ops = [(m, i) for m, i in ops if m in code]
+        rounds.append((kind, [m for m, _ in ops], [i for _, i in ops]))
+    got = [[h.result() for h in m.mixed_rounds(rounds)]
+           for m in (st, mh)]
+    check(got[0] == got[1] and _states_bit_equal(
+        torch, st.state, mh.global_state()),
+          "placement map: mixed_rounds mesh != stacked")
+    return {"batches": n_batches, "fetch_checked": fetches,
+            "launches": launches, "setup_s": setup_s, "keys": n,
+            "ms_per_pass": {k: v / n_batches * 1e3
+                            for k, v in secs.items()}}
+
+
+def place_graph(torch, dev, seed, pl, g, tree, counters, n_batches):
+    """Part c: stacked and mesh twins of ``DeviceGraph`` built from the
+    state of ``g`` (the graph phase's half-populated 10⁶-vertex tree, not
+    prepopulated again) take the same seeded batches — tree edges
+    deleted (a full rebuild each) and inserted, 16 ``connected`` queries —
+    every state field and answer bit-equal after every batch, the labels
+    equal to the union-find oracle at the end; ``label_prop``'s launches
+    counted a read pass (stacked: rebuild + merge, gated on the device;
+    mesh: the block fixpoint, the star merge and the merge where the
+    host's bound allows a rebuild, else the merge alone)."""
+    from repro_torch.core import device_graph as dg
+    from repro_torch.kernels.label_prop.ref import components_reference
+
+    live = sorted(g.edges())
+    twins = {}
+    for name, kw in (("stacked", dict(device=dev)),
+                     ("mesh", dict(placement=pl))):
+        h = dg.DeviceGraph(g.n, edge_capacity=g.capacity, c_max=g.c_max,
+                           n_shards=g.n_shards, **kw)
+        h.state = dg.clone_state(g.state)
+        h._n_edges = len(live)
+        twins[name] = h
+    st, mh = twins["stacked"], twins["mesh"]
+    # the mesh twin's first collective starts its communicator: not timed
+    mh._comm.sum(torch.zeros((), dtype=torch.int32, device=dev))
+    rng = np.random.default_rng([seed, 42])
+    n = g.n
+    secs = dict.fromkeys(twins, 0.0)
+    launches = dict.fromkeys(twins, 0)
+    rebuilds = {k: h.full_rebuilds() for k, h in twins.items()}
+    want_mesh = gathered = 0
+    for b in range(n_batches):
+        k = int(rng.integers(1, 2 * C_MAX + 1))
+        ms, ins = [], []
+        for _ in range(k):
+            if b % 3 and rng.random() < 0.5:
+                ms.append("delete")
+                ins.append(live[int(rng.integers(len(live)))])
+            else:
+                ms.append("insert")
+                ins.append(tree[int(rng.integers(len(tree)))])
+        q = [(int(rng.integers(n)), int(rng.integers(n))) for _ in range(8)]
+        q += [tuple(e) for e in ins[:8]]
+        # the mesh twin gathers only where its host bound allows a
+        # rebuild: a delete, or the first read after its state was set
+        # (at most 32 inserts never overflow the pending buffer)
+        gathered += b == 0 or "delete" in ms
+        want_mesh += 3 if b == 0 or "delete" in ms else 1
+        got = {}
+        for name, h in twins.items():
+            before = counters["label_prop"].launches
+            (hd, ans), s = _timed(dev, torch, lambda h=h: (
+                h.update_batch_async(ms, ins), h.connected_batch(q)))
+            got[name] = (hd.result(), ans)
+            secs[name] += s
+            launches[name] += counters["label_prop"].launches - before
+        check(got["mesh"] == got["stacked"],
+              f"placement graph batch {b}: mesh answers != stacked")
+        check(all(torch.equal(x, y) for x, y in zip(st.state, mh.state)),
+              f"placement graph batch {b}: mesh state != stacked state")
+    rebuilds = {k: h.full_rebuilds() - rebuilds[k]
+                for k, h in twins.items()}
+    check(rebuilds["mesh"] == rebuilds["stacked"] > 0,
+          f"placement graph: full rebuilds {rebuilds}")
+    if dev.type == "cuda":
+        check(launches["stacked"] == 2 * n_batches
+              and launches["mesh"] == want_mesh,
+              f"placement graph: label_prop launches {launches} over "
+              f"{n_batches} read passes (want 2 a pass and {want_mesh})")
+    edges = mh.edges()
+    check(edges == st.edges(), "placement graph: edge sets differ")
+    check(np.array_equal(np.asarray(mh.labels(), np.int32),
+                         components_reference(n, sorted(edges))),
+          "placement graph: labels != the union-find oracle")
+    return {"batches": n_batches, "rebuilds": rebuilds["mesh"],
+            "launches": launches, "gathered": gathered, "live_edges": len(edges),
+            "ms_per_pass": {k: v / n_batches * 1e3
+                            for k, v in secs.items()}}
+
+
+def place_collectives(torch, dev, comm, calls=PLACE_COLL_CALLS):
+    """Part f: one collective on a placed structure's group — ms a call
+    between CUDA events around ``calls`` back-to-back calls (the stream's
+    time, host gaps included), and the host's ms a call (the loop's
+    enqueue), medians of 5 windows; ``None`` off the card."""
+    x = torch.randn(PLACE_K, C_MAX, device=dev)
+    y = torch.zeros(1, 10 ** 6, dtype=torch.int32, device=dev)
+    s = torch.ones((), dtype=torch.int64, device=dev)
+    out = {}
+    for label, fn in (("all_gather (4, 16) f32", lambda: comm.gather(x)),
+                      ("all_gather (1, 10^6) i32", lambda: comm.gather(y)),
+                      ("all_reduce () i64", lambda: comm.sum(s))):
+        fn()
+        if dev.type != "cuda":
+            out[label] = None
+            continue
+        ms, host = [], []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            host.append((time.perf_counter() - t0) * 1e3 / calls)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1) / calls)
+        out[label] = (float(np.median(ms)), float(np.median(host)))
+    return out
+
+
+def placement_phase(torch, dev, seed, counters, init, pq_cap, graph, *,
+                    threads=THREADS, ops=OPS_PER_THREAD,
+                    n_replay=REPLAY_BATCHES, map_keys=MAP_KEYS,
+                    map_batches=PLACE_MAP_BATCHES,
+                    graph_batches=PLACE_GRAPH_BATCHES,
+                    round_lists=PLACE_ROUND_LISTS, out=print):
+    """Parts a-f on a one-rank mesh: on the card an NCCL group (one card
+    allows no other mesh), on the CPU gloo.  ``graph``: ``(DeviceGraph,
+    tree edges)`` of the graph phase.  Returns the phase's stats, the
+    launches of the whole phase under ``launches``."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core import substrate
+    from repro_torch.launch import serve
+
+    import io
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        # the machine has no network: NCCL's bootstrap binds loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    for f in counters.values():
+        f.launches = 0
+    pl = place_mesh(dev)
+    probe = pl.comm()
+    # a new group's first collective starts its communicator
+    _, start_s = _timed(dev, torch, lambda: probe.sum(
+        torch.zeros((), dtype=torch.int32, device=dev)))
+    backend = dist.get_backend(probe.group)
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"placement: the mesh's group runs {backend}")
+    nccl = str(torch.cuda.nccl.version()) if dev.type == "cuda" else None
+    out(f"placement mesh: {pl.describe()}, ranks {pl.ranks}, device "
+        f"{pl.device}, backend {backend}, NCCL {nccl}, NCCL_SOCKET_IFNAME="
+        f"{os.environ.get('NCCL_SOCKET_IFNAME')}; a new group's first "
+        f"collective (its communicator's start-up) {start_s * 1e3:.3f} ms")
+    res = {"describe": pl.describe(), "backend": backend, "nccl": nccl,
+           "group_start_ms": start_s * 1e3}
+
+    t0 = time.perf_counter()
+    p = place_pq(torch, dev, seed, pl, init, pq_cap, counters, n_replay,
+                 threads, ops)
+    twins = p.pop("twins")
+    res["pq"] = p
+    thr = p["threads"]
+    out(f"placement pq: {p['batches']} seeded batches at {len(init)} keys, "
+        f"K = {PLACE_K}: mesh == stacked == SequentialHeap bit for bit "
+        f"(answers and gathered heaps after every batch); heap launches "
+        f"mesh {p['launches']['mesh']} == stacked "
+        f"{p['launches']['stacked']}; {p['fetch_checked']} mesh passes "
+        f"under one_fetch (one blocking fetch each); ms a pass (wall, its "
+        f"fetch included) mesh {p['ms_per_pass']['mesh']:.3f}, stacked "
+        f"{p['ms_per_pass']['stacked']:.3f}; pc_sharded_priority_queue("
+        f"placement=): {thr['ops_per_s']:.1f} ops/s ({thr['ops']} ops in "
+        f"{thr['seconds']:.3f} s, {threads} threads), passes "
+        f"{thr['passes']}, mean batch {thr['mean_batch']:.3f}, launches "
+        f"{thr['launches']}, conservation and heap property ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    r = place_rounds(torch, dev, seed, twins, round_lists)
+    res["rounds"] = r
+    out(f"placement rounds: {r['lists']} mixed_rounds lists of "
+        f"{r['rows']} rows: mesh == stacked bit for bit; mesh graph "
+        f"captures {r['mesh_graph_captures']}, stacked graph replays "
+        f"{r['stacked_graph_replays']}; ms a dispatch (wall, answers "
+        f"fetched, median) mesh {r['ms_per_dispatch']['mesh']:.3f}, "
+        f"stacked {r['ms_per_dispatch']['stacked']:.3f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res["collectives_ms"] = place_collectives(torch, dev,
+                                              twins["mesh"]._comm)
+    del twins
+
+    t0 = time.perf_counter()
+    m = place_map(torch, dev, seed, pl, map_keys, counters, map_batches)
+    res["map"] = m
+    out(f"placement map: {m['batches']} seeded batches (bench mix, "
+        f"{READ_PCT}% reads) at {m['keys']} keys, K = {PLACE_K}: mesh == "
+        f"stacked bit for bit (answers, range_sum included, and gathered "
+        f"tables after every batch; mixed_rounds of {PLACE_ROWS} rounds); "
+        f"sorted_merge launches mesh {m['launches']['mesh']} == stacked "
+        f"{m['launches']['stacked']}; {m['fetch_checked']} mesh batches "
+        f"under one_fetch; ms a batch (wall) mesh "
+        f"{m['ms_per_pass']['mesh']:.3f}, stacked "
+        f"{m['ms_per_pass']['stacked']:.3f}; set-up {m['setup_s']:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    gr = place_graph(torch, dev, seed, pl, graph[0], graph[1], counters,
+                     graph_batches)
+    res["graph"] = gr
+    out(f"placement graph: {gr['batches']} seeded batches at "
+        f"{graph[0].n} vertices ({gr['live_edges']} live edges), twins "
+        f"from the graph phase's state: mesh == stacked bit for bit "
+        f"(answers and every GraphState field after every batch), labels "
+        f"== union-find oracle; {gr['rebuilds']} full rebuilds; label_prop "
+        f"launches mesh {gr['launches']['mesh']}, stacked "
+        f"{gr['launches']['stacked']} (a read pass: mesh 3 where the host "
+        f"bound allows a rebuild, {gr['gathered']} passes, else 1; stacked "
+        f"2); ms a batch "
+        f"(wall) mesh {gr['ms_per_pass']['mesh']:.3f}, stacked "
+        f"{gr['ms_per_pass']['stacked']:.3f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    runs = [(f"{w} mesh", ["--workload", w, "--scheduler", "pc-async",
+                           "--mesh-shards", str(PLACE_K)])
+            for w in ("pq", "map", "graph")]
+    runs.append(("pq mesh faults", [
+        "--workload", "pq", "--scheduler", "pc-async", "--faults",
+        "standard", "--requests", str(CLI_FAULT_REQUESTS), "--mesh-shards",
+        str(PLACE_K)]))
+    lines, _ = cli_serving(torch, dev, counters, runs)
+    for name, stats, _l in lines:
+        check(stats.get("placement") == pl.describe(),
+              f"placement serve {name}: stats placement "
+              f"{stats.get('placement')}")
+    # decode places the scheduler's deadline PQ alone, as the reference
+    with contextlib.redirect_stdout(io.StringIO()):
+        dec = serve.main(["--workload", "decode", "--mesh-shards",
+                          str(PLACE_K), "--sessions", "2", "--requests", "2",
+                          "--tokens", "2", "--device", dev.type])
+    check(dec.get("placement") == pl.describe()
+          and dec["requests"] == 4 and dec["device_steps"] >= 1,
+          f"placement serve decode: {dec}")
+    refused = []
+    for w in sorted(set(substrate.names()) - {"pq", "map", "graph"}):
+        try:
+            serve.main(["--workload", w, "--mesh-shards", str(PLACE_K),
+                        "--device", dev.type])
+        except ValueError:
+            refused.append(w)
+    check(refused == sorted(set(substrate.names()) - {"pq", "map", "graph"}),
+          f"placement serve: refused {refused}")
+    res["serve"] = {name: {"req_per_s": s["req_per_s"],
+                           "requests": s["requests"]}
+                    for name, s, _l in lines}
+    out("placement serve: --mesh-shards 4 " + "; ".join(
+        f"{name}: {s['requests']} requests, each applied once, "
+        f"{s['req_per_s']} requests/s, {s['placement']}, launches {lc}"
+        for name, s, lc in lines)
+        + f"; decode: {dec['requests']} requests, deadline PQ "
+        f"{dec['placement']}; refused (ValueError): {', '.join(refused)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["launches"] = {k: f.launches for k, f in counters.items()}
+    c = res["collectives_ms"]
+    out("placement times (no claim): " + "; ".join(
+        f"{k} {v[0]:.6f} ms a call on the stream, {v[1]:.6f} ms of host"
+        if v is not None else f"{k} not measured"
+        for k, v in c.items()) + f"; phase launches "
+        f"{_nonzero(res['launches'])}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def tree_graph(torch, dev, seed, n):
+    """The graph phase's half-populated 10⁶-vertex tree as a stacked
+    ``DeviceGraph``, its edge buffer written from numpy and its labels
+    rebuilt once (``--placement`` alone: the graph phase's 40 s of
+    prepopulating update passes are not the phase's subject)."""
+    from repro_torch.core.device_graph import DeviceGraph
+
+    rng = np.random.default_rng([seed, 5])
+    tu, tv = random_tree(rng, n)
+    tree = list(zip(tu.tolist(), tv.tolist()))
+    half = np.flatnonzero(np.random.default_rng([seed, 6]).random(n - 1)
+                          < 0.5)
+    g = DeviceGraph(n, edge_capacity=(n - 1) + 2 * C_MAX, c_max=C_MAX,
+                    n_shards=4, device=dev)
+    u = np.minimum(tu[half], tv[half])
+    v = np.maximum(tu[half], tv[half])
+    m = len(half)
+    g.state.eu[:m] = torch.from_numpy(u).to(dev)
+    g.state.ev[:m] = torch.from_numpy(v).to(dev)
+    g.state.valid[:m] = True
+    g.state.dirty_full.fill_(True)
+    g._n_edges = m
+    g._maybe_stale = True
+    g.connected_batch([(0, 1)])               # the one full rebuild
+    return g, tree
+
+
 def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         ops=OPS_PER_THREAD, n_replay=REPLAY_BATCHES,
         n_cases=KERNEL_CASES,
@@ -5396,6 +5971,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         rwkv_shapes=RWKV_SHAPES, rglru_shapes=RGLRU_SHAPES,
         rwkv_batch=RWKV_BATCH, rwkv_seq=RWKV_SEQ, rg_seq=RG_SEQ,
         struct_per=STRUCT_PER_SESSION, n_mega_lists=MEGA_LISTS, timing=True,
+        place_map_batches=PLACE_MAP_BATCHES,
+        place_graph_batches=PLACE_GRAPH_BATCHES,
+        place_round_lists=PLACE_ROUND_LISTS,
         hubert_frames=HUBERT_FRAMES, train_runs=TRAIN_RUNS,
         train_steps=TRAIN_STEPS, bwd_rglru_shapes=RGLRU_BWD_SHAPES,
         bwd_rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
@@ -5512,6 +6090,8 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         if dev.type == "cuda":
             s["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         results[name] = s
+        if name == "graph":
+            graph_kept = s.pop("keep")
         extra = (f"prepopulated {s['live_edges']} live edges in "
                  f"{s['prepopulate_s']:.3f} s; eliminated {s['eliminated']}"
                  f", full rebuilds {s['full_rebuilds']}, fast merges "
@@ -5565,6 +6145,15 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             f"{s.get('max_memory_allocated', 'n/a')}; checks and "
             f"{s['replayed']}-batch kernel==plain replay ok in "
             f"{s['replay_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    results["placement"] = placement_phase(
+        torch, dev, seed, counters, init, cap4, graph_kept, threads=threads,
+        ops=ops, n_replay=n_replay, map_keys=map_keys,
+        map_batches=place_map_batches, graph_batches=place_graph_batches,
+        round_lists=place_round_lists, out=out)
+    del graph_kept
+    out(f"placement: {results['placement']['seconds']:.1f} s")
     t0 = time.perf_counter()
     fa = attention_phase(torch, dev, seed, attn_seq, gemma_seq, timing,
                          hubert_frames)
@@ -5649,12 +6238,14 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
             times[name] = r
     out(f"run: phases 2-23 in {time.perf_counter() - t_run:.1f} s")
 
-    paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve"),
-             "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve"),
+    paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve",
+                           "placement"),
+             "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve",
+                           "placement"),
              "heap_insert": ("pq-single", "pq-sharded", "megapass",
-                             "serve"),
-             "label_prop": ("graph", "unionfind", "serve"),
-             "sorted_merge": ("map", "sketch", "serve"),
+                             "serve", "placement"),
+             "label_prop": ("graph", "unionfind", "serve", "placement"),
+             "sorted_merge": ("map", "sketch", "serve", "placement"),
              "flash_attention": ("model", "gemma2", "recurrentgemma",
                                  "llama4", "vision", "hubert"),
              "rwkv6_scan": ("rwkv6", "train"),
@@ -5828,6 +6419,30 @@ def serve_only(torch, seed):
     serve_phase(torch, dev, seed, counters, cfg, params, init)
 
 
+def placement_only(torch, seed):
+    """``--placement``: phase 2 and the placement phase alone, for work on
+    the placement layer; the graph twins start from :func:`tree_graph`."""
+    from repro_torch.kernels import (heap_insert, heap_kmin, heap_sift,
+                                     label_prop, sorted_merge)
+
+    build_line()
+    dev = torch.device("cuda")
+    _, cap4 = pq_capacities(N_KEYS, THREADS, OPS_PER_THREAD, REPLAY_BATCHES)
+    init = np.random.default_rng([seed, 0]).uniform(
+        0, KEY_RANGE, N_KEYS).astype(np.float32)
+    counters = {"heap_kmin": heap_kmin.k_smallest_sharded,
+                "heap_sift": heap_sift.sift_wavefront_sharded,
+                "heap_insert": heap_insert.phase4_sharded,
+                "label_prop": label_prop.propagate,
+                "sorted_merge": sorted_merge.merge_compact_sharded}
+    t0 = time.perf_counter()
+    graph = tree_graph(torch, dev, seed, GRAPH_VERTICES)
+    print(f"placement set-up: the graph's tree written from numpy and "
+          f"rebuilt once in {time.perf_counter() - t0:.1f} s")
+    s = placement_phase(torch, dev, seed, counters, init, cap4, graph)
+    print(f"placement: {s['seconds']:.1f} s")
+
+
 def megapass_only(torch, seed):
     """``--megapass``: phase 2 and the megapass phase alone, on a fresh
     K = 4 queue of the pq phases' 4,000,000 seeded keys."""
@@ -5875,6 +6490,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="only the build and the training phase (phases 2 "
                          "and 23)")
+    ap.add_argument("--placement", action="store_true",
+                    help="only the build and the placement phase (phase 2 "
+                         "and the phase after 11)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -5922,6 +6540,9 @@ def main(argv=None) -> int:
         return 0
     if args.megapass:
         megapass_only(torch, args.seed)
+        return 0
+    if args.placement:
+        placement_only(torch, args.seed)
         return 0
     if args.families:
         families_only(torch, args.seed)

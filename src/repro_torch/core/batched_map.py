@@ -1,12 +1,11 @@
 """Device-resident batched ordered map (DESIGN.md §13) — the flagship
 structure of the batch-parallel literature (Lim's 2-3 trees).
 
-The port of ``repro.core.batched_map`` with the stacked placement only.
-Each shard is a **flat 2-3 tree**: a fixed-capacity sorted unique-key
-array (keys ascending in ``[0, size)``, ``(+inf, +inf)`` padding beyond,
-one scratch slot for predicated scatters).  Sorted order makes every read
-a vectorized search and one combining pass of mixed updates a
-**sort-merge**:
+The port of ``repro.core.batched_map``.  Each shard is a **flat 2-3
+tree**: a fixed-capacity sorted unique-key array (keys ascending in
+``[0, size)``, ``(+inf, +inf)`` padding beyond, one scratch slot for
+predicated scatters).  Sorted order makes every read a vectorized search
+and one combining pass of mixed updates a **sort-merge**:
 
 * **apply pass** — applies a ≤ ``c_max`` MIXED insert/delete/assign batch
   with sequential arrival-order semantics.  Per-lane results follow the
@@ -29,6 +28,13 @@ a vectorized search and one combining pass of mixed updates a
   concatenation stays globally sorted; the sync-free host occupancy
   guard refuses overflowing batches **atomically** (a refused batch
   leaves the device buffers and the host mirror untouched).
+* **placement** (DESIGN.md §18) — under a ``MeshPlacement`` each rank
+  holds its K / D shard rows: routing runs replicated against global
+  shard ids, the net-effect prep and ``sorted_merge`` run on the local
+  rows, the arrival-order results and the read pass's per-shard stats are
+  all-gathered into the stacked (K, ·) order (so even ``range_sum``'s
+  float sums are the stacked pass's bit for bit), and the global k-th key
+  is an all-reduce MIN to which only the owning rank gives a finite key.
 
 The merge reads the old rows while it writes the new ones, so it cannot
 run in place: each apply pass writes a fresh ``(K, capacity + 1)`` row
@@ -57,9 +63,9 @@ import torch
 
 from ..kernels.sorted_merge import merge_compact_sharded
 from . import substrate
-from .batched_pq import (INF, _TINY, _device_get, _flush_subnormals,
-                         resolve_device)
+from .batched_pq import INF, _TINY, _device_get, _flush_subnormals
 from .faults import make_guard
+from .placement import STACKED, placed_device, resolve_placement
 from .sharded_pq import _route, _route_host, host_key
 
 # All device→host transfers on the map hot path route through this hook
@@ -239,7 +245,7 @@ def _prep(keys, vals, size, k1, v1, code1, nb1):
 def _apply_impl(state: MapState, op_keys: torch.Tensor,
                 op_vals: torch.Tensor, op_code: torch.Tensor, nb: int, *,
                 key_range: Optional[Tuple[float, float]] = None,
-                merge: Callable = merge_compact_sharded
+                merge: Callable = merge_compact_sharded, comm=STACKED
                 ) -> Tuple[MapState, torch.Tensor]:
     """Apply ≤ c MIXED insert/delete/assign ops as ONE pass.
 
@@ -251,26 +257,34 @@ def _apply_impl(state: MapState, op_keys: torch.Tensor,
 
     ``merge`` is the yardstick seam: no entry point passes it, and only
     ``chip_smoke.py`` swaps in ``merge_compact_plain`` to hold the kernel
-    pass against the plain pass on the card."""
+    pass against the plain pass on the card.
+
+    ``comm``: the placement's collectives.  Under a mesh, ``state`` holds
+    this rank's K / D rows: the lanes route against global shard ids, the
+    prep and the merge run on the local rows, and the per-lane results
+    are all-gathered back into the stacked (K, c) order."""
     keys, vals, size = state
-    K = keys.shape[0]
+    K_local = keys.shape[0]
+    K = K_local * comm.n
+    mine = slice(comm.index * K_local, (comm.index + 1) * K_local)
     cap = keys.shape[1] - 1
     k = _flush_subnormals(op_keys.to(torch.float32))
     v = op_vals.to(torch.float32)
     (rows_k, rows_v, rows_c), counts, shard_of, rank = _route_rows(
         k, [(k, INF), (v, 0.0), (op_code, 0)], nb, K, key_range)
     keep, b_keys, b_vals, b_count, new_size, ok_rows = _prep(
-        keys, vals, size, rows_k, rows_v, rows_c, counts)
+        keys, vals, size, rows_k[mine], rows_v[mine], rows_c[mine],
+        counts[mine])
     new_keys, new_vals = _fresh_rows(keys), _fresh_rows(vals)
     merge(keys[:, :cap], vals[:, :cap], keep, b_keys, b_vals, b_count,
           out=(new_keys[:, :cap], new_vals[:, :cap]))
     return (MapState(new_keys, new_vals, new_size),
-            _lane_results(ok_rows, shard_of, rank, nb))
+            _lane_results(comm.gather(ok_rows), shard_of, rank, nb))
 
 
 def apply_rounds(state: MapState, op_keys, op_vals, op_code,
                  nb: Sequence[int], *, key_range=None, donate: bool = True,
-                 merge: Callable = merge_compact_sharded):
+                 merge: Callable = merge_compact_sharded, comm=STACKED):
     """R sequential ≤ c slices back to back on one stream (DESIGN.md
     §12): ``op_keys``/``op_vals``/``op_code`` (R, c), ``nb`` R host ints.
     Returns ``(state, oks (R, c))``; no host sync between the slices.
@@ -280,7 +294,8 @@ def apply_rounds(state: MapState, op_keys, op_vals, op_code,
     oks = []
     for r, n in enumerate(nb):
         state, ok = _apply_impl(state, op_keys[r], op_vals[r], op_code[r],
-                                n, key_range=key_range, merge=merge)
+                                n, key_range=key_range, merge=merge,
+                                comm=comm)
         oks.append(ok)
     return state, torch.stack(oks)
 
@@ -289,7 +304,8 @@ def apply_rounds(state: MapState, op_keys, op_vals, op_code,
 # Vectorized read pass (reads copy nothing)
 # ---------------------------------------------------------------------------
 def _read_impl(state: MapState, qa: torch.Tensor, qb: torch.Tensor,
-               qkind: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               qkind: torch.Tensor, comm=STACKED
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Answer a mixed read batch in one pass, on the device.
 
     ``qa``/``qb``: (q,) f32 — the key (lookup), [lo, hi] bounds
@@ -297,16 +313,23 @@ def _read_impl(state: MapState, qa: torch.Tensor, qb: torch.Tensor,
     ``qkind``: (q,) int32.  Returns ``(res (q,) f32, ok (q,) bool)`` —
     ``ok`` is the found/in-range flag for lookup and kth_smallest.
     ``range_sum`` is a difference of f32 prefix sums, as in the
-    reference, so its last bits depend on the summation order."""
+    reference, so its last bits depend on the summation order.
+
+    ``comm``: under a mesh the per-shard searches and prefix sums run on
+    this rank's rows, their (K / D, q) stats are all-gathered into the
+    stacked (K, q) order and reduced by the stacked code, and the k-th
+    key is an all-reduce MIN over the ranks, only the owner finite."""
     keys, vals, size = state
-    K = keys.shape[0]
+    K_local = keys.shape[0]
+    K = K_local * comm.n
+    base = comm.index * K_local
     cap = keys.shape[1] - 1
     dev = keys.device
     q = qa.shape[0]
     qa = _flush_subnormals(qa.to(torch.float32))
     qb = _flush_subnormals(qb.to(torch.float32))
-    qa_k = qa[None, :].expand(K, q).contiguous()
-    qb_k = qb[None, :].expand(K, q).contiguous()
+    qa_k = qa[None, :].expand(K_local, q).contiguous()
+    qb_k = qb[None, :].expand(K_local, q).contiguous()
     sz = size[:, None].long()
 
     pos, pos_c, found = _search(keys, qa_k, size)
@@ -318,9 +341,13 @@ def _read_impl(state: MapState, qa: torch.Tensor, qb: torch.Tensor,
     # prefix sums of the live values for range aggregation
     live = torch.where(torch.arange(cap, device=dev)[None, :] < sz,
                        vals[:, :cap], 0.0)
-    ps = torch.cat([torch.zeros((K, 1), dtype=torch.float32, device=dev),
+    ps = torch.cat([torch.zeros((K_local, 1), dtype=torch.float32,
+                                device=dev),
                     torch.cumsum(live, 1)], 1)
     rsum = torch.where(hi > lo, ps.gather(1, hi) - ps.gather(1, lo), 0.0)
+    found, lval, cnt, rsum = (comm.gather(t) for t in (found, lval, cnt,
+                                                       rsum))
+    size_g = comm.gather(size)
 
     any_found = found.any(0)
     # exactly one shard can hold the key (routing) — masked min IS select
@@ -330,14 +357,18 @@ def _read_impl(state: MapState, qa: torch.Tensor, qb: torch.Tensor,
 
     # global k-th: key-range routing keeps the shard concatenation
     # globally sorted, so a cumulative-size search finds the owner shard
-    ccum = torch.cumsum(size.long(), 0)
+    ccum = torch.cumsum(size_g.long(), 0)
     kq = qa.to(torch.int32).long()
     sh = (ccum[:, None] < kq[None, :]).sum(0)
     sh_c = sh.clamp(0, K - 1)
     prior = torch.where(sh > 0, ccum[(sh - 1).clamp(0, K - 1)], 0)
     loc = kq - prior
     kth_ok = (kq >= 1) & (kq <= ccum[K - 1])
-    kth_val = keys[sh_c, (loc - 1).clamp(0, cap - 1)]
+    # only the owner rank's key is finite (stacked: every shard is owned)
+    owner = (sh_c >= base) & (sh_c < base + K_local)
+    kth_val = comm.min(torch.where(
+        owner, keys[(sh_c - base).clamp(0, K_local - 1),
+                    (loc - 1).clamp(0, cap - 1)], INF))
 
     res = torch.where(
         qkind == RD_LOOKUP, look_val,
@@ -357,7 +388,7 @@ MEGA_UPDATE, MEGA_READ = 0, 1
 def mixed_rounds_pass(state: MapState, tags: Sequence[int], op_a, op_b,
                       op_code, nb: Sequence[int], *, key_range=None,
                       donate: bool = True,
-                      merge: Callable = merge_compact_sharded):
+                      merge: Callable = merge_compact_sharded, comm=STACKED):
     """R heterogeneous rounds back to back with no host sync between them.
 
     Row payloads share lanes: ``op_a``/``op_b`` (R, c) f32 carry (keys,
@@ -371,10 +402,12 @@ def mixed_rounds_pass(state: MapState, tags: Sequence[int], op_a, op_b,
     res, oks = [], []
     for r, tag in enumerate(tags):
         if tag == MEGA_READ:
-            got, ok = _read_impl(state, op_a[r], op_b[r], op_code[r])
+            got, ok = _read_impl(state, op_a[r], op_b[r], op_code[r],
+                                 comm=comm)
         else:
             state, ok = _apply_impl(state, op_a[r], op_b[r], op_code[r],
-                                    nb[r], key_range=key_range, merge=merge)
+                                    nb[r], key_range=key_range, merge=merge,
+                                    comm=comm)
             got = torch.full_like(op_a[r], INF)
         res.append(got)
         oks.append(ok)
@@ -567,10 +600,15 @@ class ShardedMap(substrate.BatchedStructure):
       donate: rebuild in place of the old rows (default); ``False`` is
         the copy-per-pass ablation twin.
       fault_plan, guard: transactional dispatch (DESIGN.md §15).
-      placement: None (or a stacked placement) only; a mesh placement
-        waits for the port's placement layer.
+      placement: shard layout (DESIGN.md §18) — ``None`` /
+        ``StackedPlacement`` keeps all K rows in this process; a
+        ``MeshPlacement`` (K % D == 0) keeps this rank's K / D rows on its
+        device and runs the cross-shard steps as collectives over a
+        process group of the map's own.  Every rank of the mesh builds
+        the same map and drives it with the same calls.  Anything else
+        raises ``TypeError``.
       device: ``None`` means the card (``"cuda"``) and raises without
-        one; the tests pass ``"cpu"``.
+        one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
 
     Sync-free occupancy guard (DESIGN.md §10): the wrapper mirrors the
     device's key-range routing on the host (bit exact) and keeps
@@ -583,7 +621,7 @@ class ShardedMap(substrate.BatchedStructure):
     read_only: Set[str] = {"lookup", "range_count", "range_sum",
                            "kth_smallest"}
     supports_megapass = True
-    supports_placement = False
+    supports_placement = True
 
     def __init__(self, capacity: int, c_max: int, n_shards: int = 1,
                  key_range: Optional[Tuple[float, float]] = None,
@@ -600,17 +638,15 @@ class ShardedMap(substrate.BatchedStructure):
             raise ValueError(
                 "n_shards > 1 requires key_range: the ordered reads "
                 "(kth_smallest) need the key-range partition")
-        if placement not in (None, "stacked") and \
-                getattr(placement, "is_mesh", True):
-            raise ValueError(
-                "ShardedMap takes the stacked placement only: a mesh "
-                "placement waits for the port's placement layer")
+        self.placement = resolve_placement(placement)
+        self.placement.validate(int(n_shards))
         self.capacity = int(capacity)
         self.c_max = int(c_max)
         self.n_shards = int(n_shards)
         self.use_pallas = bool(use_pallas)
         self.donate = bool(donate)
-        self.device = resolve_device(device)
+        self.device = placed_device(self.placement, device)
+        self._comm = self.placement.comm()
         self.key_range = ((float(key_range[0]), float(key_range[1]))
                           if key_range is not None else None)
         self.fault_plan = fault_plan
@@ -667,14 +703,21 @@ class ShardedMap(substrate.BatchedStructure):
                 size[k] = n
         # host occupancy mirror: exact at init, upper bounds in between
         self._sizes_ub = size.astype(np.int64).copy()
-        return MapState(*(torch.from_numpy(a).to(self.device)
-                          for a in (keys, vals, size)))
+        return MapState(*(                 # this rank's rows
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in self.placement.put((keys, vals, size), K)))
+
+    def global_state(self) -> MapState:
+        """The (K, capacity + 1) tables and (K,) sizes: the live state
+        when stacked, an all-gather of every rank's rows under a mesh
+        (every rank calls it)."""
+        return self.placement.gather(self.state, self._comm)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
     def __len__(self) -> int:
-        return int(self.state.size.sum())
+        return int(self._comm.sum(self.state.size.sum()))
 
     # -- occupancy guard ------------------------------------------------------
     def _refresh_sizes(self, sizes) -> None:
@@ -726,7 +769,7 @@ class ShardedMap(substrate.BatchedStructure):
             self.state, oks = apply_rounds(
                 self.state, self._to_device(ks), self._to_device(vs),
                 self._to_device(cs), lane_counts, key_range=self.key_range,
-                donate=self.donate, merge=self._merge)
+                donate=self.donate, merge=self._merge, comm=self._comm)
             return [oks]
 
         masks = self._guarded(commit, "map.apply_pass")
@@ -744,8 +787,8 @@ class ShardedMap(substrate.BatchedStructure):
             todo = []                          # already resolved
         if not todo and extra is None:
             return None
-        fetched = _host_fetch(([h.masks for h in todo], self.state.size,
-                               extra))
+        fetched = _host_fetch(([h.masks for h in todo],
+                               self._comm.gather(self.state.size), extra))
         for h, masks_h in zip(todo, fetched[0]):
             h._resolve(masks_h)
             self._unresolved.remove(h)
@@ -773,7 +816,8 @@ class ShardedMap(substrate.BatchedStructure):
             return []
         qa, qb, kind = _encode_read_ops(methods, inputs)
         res, ok = _read_impl(self.state, self._to_device(qa),
-                             self._to_device(qb), self._to_device(kind))
+                             self._to_device(qb), self._to_device(kind),
+                             comm=self._comm)
         got = self._resolve_through(None, extra=(res, ok))
         return _convert_read_results(methods, got[0], got[1])
 
@@ -838,7 +882,7 @@ class ShardedMap(substrate.BatchedStructure):
             self.state, res_rows, ok_rows = mixed_rounds_pass(
                 self.state, tags, self._to_device(ra), self._to_device(rb),
                 self._to_device(rc), nbs, key_range=self.key_range,
-                donate=self.donate, merge=self._merge)
+                donate=self.donate, merge=self._merge, comm=self._comm)
             return res_rows, ok_rows
 
         res_rows, ok_rows = self._guarded(commit, "map.mixed_rounds")
@@ -866,8 +910,7 @@ class ShardedMap(substrate.BatchedStructure):
     def items(self) -> List[Tuple[float, float]]:
         """Host copy of the live (key, value) pairs, ascending (one
         fetch; test/debug)."""
-        keys, vals, size = _host_fetch((self.state.keys, self.state.vals,
-                                        self.state.size))
+        keys, vals, size = _host_fetch(tuple(self.global_state()))
         out: List[Tuple[float, float]] = []
         for k in range(self.n_shards):
             n = int(size[k])
@@ -1004,5 +1047,8 @@ substrate.register(substrate.StructureSpec(
     compact=_read_opt._compact_map,
     refusal_batch=_refusal_batch,
     megapass=True,
-    extras={"serve_kw": dict(capacity=512, c_max=64, n_shards=4)},
+    extras={"serve_kw": dict(capacity=512, c_max=64, n_shards=4),
+            # the constructor takes placement= (DESIGN.md §18); serve.py
+            # keys --mesh-shards off this marker
+            "placement": True},
 ))

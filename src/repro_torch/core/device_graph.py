@@ -21,6 +21,13 @@ pass plus one read pass with a single blocking fetch:
   buffer when it is set, the contracted-graph union-find fast path over
   the pending inserts when it is not (a no-op when nothing is pending).
   On a CPU graph the same calls run the kernel's plain version.
+* **placement** (DESIGN.md §18) — under a ``MeshPlacement`` only the full
+  rebuild is distributed: each rank runs the fixpoint over its block of
+  the edge slots and one more launch merges the gathered tables
+  (``label_prop.propagate_collective``), still gated on the device by
+  ``dirty_full``.  ``GraphState`` has no K axis, so the state, the update
+  passes and the contracted-graph merge stay replicated on every rank, as
+  in the reference (the "graph honesty note").
 * **sync-free update publishing** — ``update_batch_async`` leaves the
   per-request result masks on the device; they ride the next read's
   single blocking fetch (:data:`_host_fetch`).
@@ -46,10 +53,11 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from ..kernels.label_prop import propagate
+from ..kernels.label_prop import propagate, propagate_collective
 from . import substrate
-from .batched_pq import _device_get, resolve_device
+from .batched_pq import _device_get
 from .faults import make_guard
+from .placement import STACKED, placed_device, resolve_placement
 
 # All device→host transfers on the graph hot path route through this hook
 # so tests can count blocking syncs (same idiom as batched_pq._host_fetch).
@@ -171,19 +179,28 @@ def _update_impl(state: GraphState, buv: torch.Tensor, is_ins: torch.Tensor,
 
 
 def _read_impl(state: GraphState, uv: torch.Tensor, *,
-               prop: Callable = propagate
+               prop: Callable = propagate, comm=STACKED, full: bool = True
                ) -> Tuple[GraphState, torch.Tensor]:
     """Refresh + gather/compare for one read batch, in place, with no host
     read: the full rebuild runs iff ``dirty_full``, the contracted-graph
     merge of the pending inserts iff not (identity when none pend) — both
     gated inside the launch.  ``n_full`` counts full branches, ``n_fast``
-    merge branches.
+    merge branches.  ``comm``: a mesh placement's collectives split the
+    full rebuild's edge slots across its ranks
+    (:func:`~repro_torch.kernels.label_prop.propagate_collective`); the
+    stacked default runs it as one launch.  ``full``: the host's bound —
+    False guarantees ``dirty_full`` is clear, and a mesh then skips the
+    collective rebuild on every rank (the stacked launch ignores it).
 
     ``prop`` is the yardstick seam: no entry point passes it, and only
     ``chip_smoke.py`` swaps in ``propagate_plain`` to hold the kernel pass
     against the plain pass on the card."""
     eu, ev, valid, labels, pend, n_pend, dirty_full, n_full, n_fast = state
-    prop(eu, ev, labels, valid=valid, when=dirty_full)
+    if comm is STACKED:
+        prop(eu, ev, labels, valid=valid, when=dirty_full)
+    elif full:
+        propagate_collective(eu, ev, labels, comm, valid=valid,
+                             when=dirty_full, prop=prop)
     prop(pend[0], pend[1], labels, e_live=n_pend, relabel=True,
          unless=dirty_full)
     n_full += dirty_full.to(torch.int32)
@@ -212,9 +229,10 @@ def update_rounds(state, buv, is_ins, nb: Sequence[int], *,
     return state, torch.stack(oks)
 
 
-def read_pass(state, uv, *, donate: bool = True, prop: Callable = propagate):
+def read_pass(state, uv, *, donate: bool = True, prop: Callable = propagate,
+              comm=STACKED, full: bool = True):
     return _read_impl(state if donate else clone_state(state), uv,
-                      prop=prop)
+                      prop=prop, comm=comm, full=full)
 
 
 # megapass row tags (DESIGN.md §17)
@@ -223,18 +241,22 @@ MEGA_UPDATE, MEGA_READ = 0, 1
 
 def mixed_rounds_pass(state, tags: Sequence[int], buv, flags,
                       nb: Sequence[int], *, donate: bool = True,
-                      prop: Callable = propagate):
+                      prop: Callable = propagate, comm=STACKED,
+                      full: Optional[Sequence[bool]] = None):
     """R heterogeneous update/read rows back to back (DESIGN.md §17): per
     row, the update pass or the refresh+gather read pass.  ``buv`` (R, 2,
     c) endpoints or query pairs, ``flags`` (R, c) insert selectors,
-    ``nb`` live lanes per update row.  Returns ``(state, oks (R, c))`` —
-    update rows stack their ok masks, read rows their answers."""
+    ``nb`` live lanes per update row, ``full`` (R host bools, read rows
+    read; default all True) the host's rebuild bound of
+    :func:`_read_impl`.  Returns ``(state, oks (R, c))`` — update rows
+    stack their ok masks, read rows their answers."""
     if not donate:
         state = clone_state(state)
     oks = []
     for r, tag in enumerate(tags):
         if tag == MEGA_READ:
-            oks.append(_read_impl(state, buv[r], prop=prop)[1])
+            oks.append(_read_impl(state, buv[r], prop=prop, comm=comm,
+                                  full=full is None or full[r])[1])
         else:
             oks.append(_update_impl(state, buv[r], flags[r], nb[r])[1])
     return state, torch.stack(oks)
@@ -415,16 +437,22 @@ class DeviceGraph(substrate.BatchedStructure):
       donate: update the state in place (default); False is the
         clone-per-pass ablation twin.
       fault_plan, guard: transactional dispatch (DESIGN.md §15).
-      placement: None (or a stacked placement) only; a mesh placement
-        waits for the port's placement layer (ROADMAP A9).
+      placement: layout of the full label rebuild (DESIGN.md §18) —
+        ``None`` / ``StackedPlacement`` runs it as one launch; a
+        ``MeshPlacement`` splits the edge slots across its ranks and merges
+        the label tables (bit-equal: the component-min labelling is
+        unique).  Updates and the contracted-graph merge stay replicated
+        (``GraphState`` has no K axis to place); anything else raises
+        ``TypeError``.  Every rank of the mesh builds the same graph and
+        drives it with the same calls.
       device: ``None`` means the card (``"cuda"``) and raises without
-        one; the tests pass ``"cpu"``.
+        one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
     """
 
     structure = "graph"
     read_only: Set[str] = {"connected"}
     supports_megapass = True
-    supports_placement = False
+    supports_placement = True
 
     def __init__(self, n_vertices: int, *, edge_capacity: int = 4096,
                  c_max: int = 64, n_shards: int = 1,
@@ -436,18 +464,22 @@ class DeviceGraph(substrate.BatchedStructure):
             raise ValueError("c_max must be >= 1")
         if edge_capacity < c_max:
             raise ValueError("edge_capacity must be >= c_max")
-        if placement not in (None, "stacked") and \
-                getattr(placement, "is_mesh", True):
-            raise ValueError(
-                "DeviceGraph takes the stacked placement only: a mesh "
-                "placement waits for the port's placement layer")
+        self.placement = resolve_placement(placement)
         self.n = int(n_vertices)
         self.capacity = int(edge_capacity)
         self.c_max = int(c_max)
         self.n_shards = int(n_shards)
         self.use_pallas = bool(use_pallas)
         self.donate = bool(donate)
-        self.device = resolve_device(device)
+        self.device = placed_device(self.placement, device)
+        self._comm = self.placement.comm()
+        # host bound on the device's dirty_full: False guarantees the next
+        # read pass needs no full rebuild, so a mesh skips its collective.
+        # Raised by a delete lane, by inserts that could overflow the
+        # pending buffer (``_pend_ub`` bounds n_pend), and by any state the
+        # passes did not leave (:attr:`state`'s setter)
+        self._full_possible = True
+        self._pend_ub = 0
         self.state = init_state(self.n, self.capacity, self.c_max,
                                 self.device)
         # live-edge-count mirror: exact after every resolved fetch; the
@@ -466,6 +498,32 @@ class DeviceGraph(substrate.BatchedStructure):
         # in the plain version, to hold the kernel pass against it on the
         # card; no entry point takes it
         self._prop: Callable = propagate
+
+    @property
+    def state(self) -> GraphState:
+        return self._state
+
+    @state.setter
+    def state(self, st: GraphState) -> None:
+        # the host bound follows the live dirty flag only: a state from
+        # elsewhere (a restore, a clone, a caller's) may carry a rebuild
+        old = self.__dict__.get("_state")
+        if old is None or st.dirty_full is not old.dirty_full:
+            self._full_possible = True
+        self._state = st
+
+    def _note_update(self, lane_ins: int, has_delete: bool) -> None:
+        """Raise the rebuild bound for one update row's lanes."""
+        self._pend_ub += lane_ins
+        self._full_possible |= (has_delete or self._pend_ub
+                                > self.state.pend.shape[1] - 1)
+
+    def _take_full(self) -> bool:
+        """The rebuild bound for a read pass, which clears the device's
+        dirty flag and pending count: the bound restarts from zero."""
+        full, self._full_possible, self._pend_ub = (
+            self._full_possible, False, 0)
+        return full
 
     # -- transactional dispatch (DESIGN.md §15) -------------------------------
     def _snapshot(self):
@@ -550,6 +608,7 @@ class DeviceGraph(substrate.BatchedStructure):
                                                donate=self.donate)
             self._outstanding_ins += lane_ins
             self._maybe_stale = True
+            self._note_update(lane_ins, lane_ins < d)
             return [ok]
 
         masks = self._guarded(commit, "graph.update_pass")
@@ -612,7 +671,8 @@ class DeviceGraph(substrate.BatchedStructure):
             # update (a failed refresh must restore labels + dirty state)
             self._maybe_stale = False
             self.state, ans = read_pass(self.state, uv, donate=self.donate,
-                                        prop=self._prop)
+                                        prop=self._prop, comm=self._comm,
+                                        full=self._take_full())
             return ans
 
         ans = self._guarded(commit, "graph.read_pass")
@@ -708,10 +768,17 @@ class DeviceGraph(substrate.BatchedStructure):
             self._outstanding_ins += total_lane_ins
             self._maybe_stale = (upd_after if has_read
                                  else self._maybe_stale or upd_after)
+            full = []
+            for tag, sel, k in zip(row_tags, row_flags, row_nb):
+                if tag == MEGA_READ:
+                    full.append(self._take_full())
+                else:
+                    full.append(False)
+                    self._note_update(int(sel[:k].sum()), not sel[:k].all())
             self.state, oks = mixed_rounds_pass(
                 self.state, row_tags, self._to_device(buv_all),
                 self._to_device(flags_all), row_nb, donate=self.donate,
-                prop=self._prop)
+                prop=self._prop, comm=self._comm, full=full)
             return oks
 
         oks = self._guarded(commit, "graph.mixed_rounds")
@@ -730,6 +797,10 @@ class DeviceGraph(substrate.BatchedStructure):
         return handles
 
     # -- debug / test helpers -------------------------------------------------
+    def global_state(self) -> GraphState:
+        """The state every rank holds (replicated under a mesh)."""
+        return self.state
+
     def full_rebuilds(self) -> int:
         """Device-side full-rebuild counter (insert-only traffic must not
         bump it: the union-find fast path takes it)."""
@@ -835,5 +906,8 @@ substrate.register(substrate.StructureSpec(
     compact=_read_opt._compact_graph,
     refusal_batch=_refusal_batch,
     megapass=True,
-    extras={"serve_kw": dict(c_max=64, n_shards=4)},
+    extras={"serve_kw": dict(c_max=64, n_shards=4),
+            # the constructor takes placement= (DESIGN.md §18); serve.py
+            # keys --mesh-shards off this marker
+            "placement": True},
 ))

@@ -37,6 +37,7 @@ from .combining import (ALL_TIERS, TIER_DEVICE, TIER_ELIMINATE, TIER_HOST,
                         CostModel,
                         ParallelCombiner, Request, Status, TierRouter,
                         eliminate_pq_pairs, track_pq_batch)
+from .placement import require_one_rank
 from .seq_pq import SequentialHeap
 from .sharded_pq import ShardedBatchedPQ, host_key
 
@@ -503,7 +504,7 @@ def pc_adaptive_priority_queue(pq: AnyBatchedPQ, *, tier: str = "auto",
 def pc_sharded_priority_queue(capacity: int, c_max: int,
                               n_shards: int = 4, values=None,
                               donate: bool = True, fault_plan=None,
-                              guard=None, device=None,
+                              guard=None, placement=None, device=None,
                               **kw) -> ParallelCombiner:
     """Parallel combining over the K-sharded batched heap (DESIGN.md §9).
 
@@ -513,15 +514,19 @@ def pc_sharded_priority_queue(capacity: int, c_max: int,
     ablation (DESIGN.md §10).  ``fault_plan``/``guard`` thread the
     DESIGN.md §15 fault-tolerance layer through both the queue
     (transactional dispatch) and the combining engine (lease takeover,
-    injected kills).  ``device=None`` means the card.
+    injected kills).  ``placement`` selects the shard layout (DESIGN.md
+    §18): None/stacked, or a ``MeshPlacement`` of one rank (the threaded
+    combiner runs on one rank; a larger mesh raises ROADMAP A24's
+    ``NotImplementedError``).  ``device=None`` means the card.
     """
+    require_one_rank(placement, "pc_sharded_priority_queue")
     if fault_plan is not None:
         kw.setdefault("fault_plan", fault_plan)
     return pc_priority_queue(
         ShardedBatchedPQ(capacity, c_max=c_max, n_shards=n_shards,
                          values=values, donate=donate,
                          fault_plan=fault_plan, guard=guard,
-                         device=device), **kw)
+                         placement=placement, device=device), **kw)
 
 
 def pc_megapass_priority_queue(capacity: int, c_max: int,

@@ -1,8 +1,8 @@
 """Sharded batched priority queue (DESIGN.md §9–§10) — K heaps, one pass.
 
-The port of ``repro.core.sharded_pq`` with the stacked placement only: K
-independent 1-indexed heaps live as rows of one ``(K, capacity)`` tensor,
-and one combined batch runs over all of them as one pass:
+The port of ``repro.core.sharded_pq``: K independent 1-indexed heaps live
+as rows of one ``(K, capacity)`` tensor, and one combined batch runs over
+all of them as one pass:
 
 1. **route** — inserts go to shards by a bit-mix hash of their key
    (default) or by a fixed key range (``key_range=``), on the device;
@@ -22,6 +22,17 @@ Correctness: the global |E| smallest keys of the union are a subset of the
 union of per-shard |E|-smallest candidate lists, so step 2's merge picks
 exactly the right multiset; step 3 then extracts precisely those nodes
 because each shard's frontier search is deterministic.
+
+Placement (DESIGN.md §18): under a ``MeshPlacement`` each rank holds only
+its ``K / D`` rows, the kernels run on them, and the two K-way merges
+become collectives — an all-gather of the ``(K / D, c_max)`` frontier
+candidates (mesh order is stacked order, so the global merge, the
+``chosen`` mask and the extract counts are the stacked pass's bit for
+bit), an all-gather of the extract rows for the answer, and an
+all-reduce of the sizes for ``k_eff``.  Routing, the occupancy mirror and
+the merges run replicated on every rank.  The passes take the
+placement's collectives as ``comm``; the stacked ones are identities, so
+the stacked pass is unchanged.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from ..kernels.heap_kmin import k_smallest_sharded
 from . import batched_pq as _bpq
 from . import substrate
 from .faults import make_guard
+from .placement import STACKED, placed_device, resolve_placement
 from .batched_pq import (
     INF,
     _TINY,
@@ -181,6 +193,7 @@ def _sharded_apply_batch(
     *, c_max: int, n_shards: int,
     key_range: Optional[Tuple[float, float]] = None,
     phases: Phases = KERNEL_PHASES, n_pull: Optional[int] = None,
+    comm=STACKED,
 ) -> Tuple[ShardedHeapState, torch.Tensor, torch.Tensor]:
     """Apply one packed row (:func:`batched_pq.pack_rows`), updating
     ``state`` in place.
@@ -205,10 +218,19 @@ def _sharded_apply_batch(
     passes it, and only ``chip_smoke.py`` swaps in
     :data:`batched_pq.PLAIN_PHASES` (or checked phases) to hold the
     kernel pass against the plain pass on the card.
+
+    ``comm``: the placement's collectives (``core.placement``).  Under a
+    mesh, ``state`` holds this rank's ``K / D`` rows (global shards
+    ``base …``): inserts route against global shard ids and keep the
+    local ones, the frontier candidates and the extract rows are
+    all-gathered into the stacked (K, c_max) order, and the sizes are
+    all-reduced for ``k_eff``.
     """
     K = n_shards
     a, size = state
     dev = a.device
+    K_local = a.shape[0]
+    base = comm.index * K_local
     lane = torch.arange(c_max, device=dev, dtype=torch.int32)
     tag, ne, ni, insert_vals = _bpq.row_fields(row, c_max)
     update = tag == MEGA_UPDATE
@@ -218,14 +240,15 @@ def _sharded_apply_batch(
     # -- 1. route inserts to shards (invalid lanes park on shard 0 masked out)
     shard_of = torch.where(ins_valid, _route(insert_vals, K, key_range), 0)
     shard_ids = torch.arange(K, device=dev, dtype=torch.int32)
-    one_hot = (shard_of[None, :] == shard_ids[:, None]) & ins_valid[None, :]
+    local_ids = shard_ids[base:base + K_local]
+    one_hot = (shard_of[None, :] == local_ids[:, None]) & ins_valid[None, :]
     ins_rows = torch.sort(torch.where(one_hot, insert_vals[None, :], INF),
                           dim=1).values
     ins_counts = one_hot.sum(dim=1, dtype=torch.int32)
 
     # -- 2. per-shard frontier candidates (read-only) + global merge
     cand_ids, cand_vals = phases.kmin(a, size, ne, c_max=c_max)
-    flat_vals = cand_vals.reshape(-1)                    # (K*c_max,)
+    flat_vals = comm.gather(cand_vals).reshape(-1)       # (K*c_max,)
     flat_shard = shard_ids[:, None].expand(K, c_max).reshape(-1).long()
     order = torch.argsort(flat_vals, stable=True)
     flat_sorted = flat_vals[order]
@@ -238,12 +261,14 @@ def _sharded_apply_batch(
     # -- 3. phases 1–2 on every shard.  The frontier scan is deterministic
     # and prefix-stable, so the first e_k lanes of the step-2 candidates
     # ARE shard k's phase-1 result — mask and reuse them.
-    take_k = lane < e_counts[:, None]
+    e_local = e_counts[base:base + K_local]
+    take_k = lane < e_local[:, None]
     phase1 = (torch.where(take_k, cand_ids, 0),
               torch.where(take_k, cand_vals, INF))
-    k_eff = torch.minimum(size.sum(), ne.to(torch.int64)).to(torch.int32)
+    k_eff = torch.minimum(comm.sum(size.sum()),
+                          ne.to(torch.int64)).to(torch.int32)
     a2, size2, out_rows, _k_eff_k, starts, active, rem, m_left = _phases12(
-        a, size, e_counts, ins_rows, ins_counts, c_max=c_max, phase1=phase1,
+        a, size, e_local, ins_rows, ins_counts, c_max=c_max, phase1=phase1,
         n_pull=c_max if n_pull is None else n_pull)
 
     # -- 3b. sift wavefront + collective inserts on every shard
@@ -253,7 +278,7 @@ def _sharded_apply_batch(
 
     # -- 4. merge the per-shard answers (ascending, +inf padded); a read
     # row answers the frontier's ne smallest keys
-    merged = torch.sort(out_rows.reshape(-1)).values[:c_max]
+    merged = torch.sort(comm.gather(out_rows).reshape(-1)).values[:c_max]
     frontier = torch.where(lane < ne, flat_sorted[:c_max], INF)
     return state, torch.where(update, merged, frontier), k_eff
 
@@ -272,7 +297,7 @@ def sharded_apply_batch_undonated(state, row, **kw):
 def _sharded_mixed_rows(
     state: ShardedHeapState, rows: torch.Tensor, *, c_max: int,
     n_shards: int, key_range: Optional[Tuple[float, float]] = None,
-    phases: Phases = KERNEL_PHASES,
+    phases: Phases = KERNEL_PHASES, comm=STACKED,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """R packed rows (R, 3 + c_max) int32 on the heap's device, tagged
     ``MEGA_UPDATE`` / ``MEGA_READ``, run in order and in place: the
@@ -280,32 +305,35 @@ def _sharded_mixed_rows(
     Returns ``(outs (R, c_max), k_effs (R,))``.  Nothing here reads a
     tensor on the host (no ``int()``, ``.item()``, ``nonzero`` or
     data-dependent shape), so ``ShardedBatchedPQ`` captures it as one
-    CUDA graph per R; run eagerly it is the graph's yardstick, and the
-    CPU's pass."""
+    CUDA graph per R; run eagerly it is the graph's yardstick, the CPU's
+    pass and a mesh's (``comm``: the placement's collectives)."""
     outs, k_effs = [], []
     for r in range(rows.shape[0]):
         _, out, k_eff = _sharded_apply_batch(
             state, rows[r], c_max=c_max, n_shards=n_shards,
-            key_range=key_range, phases=phases)
+            key_range=key_range, phases=phases, comm=comm)
         outs.append(out)
         k_effs.append(k_eff)
     return torch.stack(outs), torch.stack(k_effs)
 
 
 def _peek_min_impl(state: ShardedHeapState, n_extract: torch.Tensor, *,
-                   c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   c_max: int, comm=STACKED
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Read-only twin of :func:`_sharded_apply_batch` steps 1–2: the
     per-shard frontier candidates and the global merge, without the
     extraction phases.  ``n_extract``: () int32 on the heap's device.
     Returns ``(merged (c_max,) ascending +inf-padded, k_eff)``: the
-    ``n_extract`` globally smallest keys."""
+    ``n_extract`` globally smallest keys.  Under a mesh (``comm``) the
+    local candidates are all-gathered before the merge."""
     a, size = state
     ne = torch.clamp(n_extract, max=c_max)
     _ids, cand_vals = k_smallest_sharded(a, size, ne, c_max=c_max)
-    flat = torch.sort(cand_vals.reshape(-1)).values[:c_max]
+    flat = torch.sort(comm.gather(cand_vals).reshape(-1)).values[:c_max]
     lane = torch.arange(c_max, device=a.device)
     merged = torch.where(lane < ne, flat, INF)
-    k_eff = torch.minimum(size.sum(), ne.to(torch.int64)).to(torch.int32)
+    k_eff = torch.minimum(comm.sum(size.sum()),
+                          ne.to(torch.int64)).to(torch.int32)
     return merged, k_eff
 
 
@@ -391,8 +419,22 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         (guard exactly when a plan is given).  Guarded passes snapshot the
         heap stack + occupancy mirror and restore bit-identically on
         failure.
+      placement: shard layout (DESIGN.md §18) — ``None`` /
+        ``StackedPlacement`` keeps all K rows in this process; a
+        ``MeshPlacement`` (K % D == 0) keeps this rank's K / D rows on its
+        device and runs the passes' merges as collectives over a process
+        group of the structure's own.  Every rank of the mesh builds the
+        same queue and drives it with the same calls; the occupancy
+        mirror, snapshots and restores work on each rank's rows as they
+        do stacked, and a rounds dispatch runs its rows eagerly (no CUDA
+        graph captures a collective).  Anything else raises
+        ``TypeError``.
+      comm: the placement's collectives to run on — a queue that
+        replaces another on the same placement passes the old one's
+        :attr:`comm`, so no communicator is started again; ``None``
+        takes a process group of the queue's own.
       device: ``None`` means the card (``"cuda"``) and raises without
-        one; the tests pass ``"cpu"``.
+        one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
 
     Sync-free occupancy guard (DESIGN.md §10): the wrapper mirrors the
     device's insert routing on the host (bit-exact numpy twins) and keeps
@@ -402,16 +444,18 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
     ``e_k ≥ min(ne, total) - Σ_{j≠k} size_j``.  The bounds re-tighten to
     the true sizes at every consumed ``result()``.  The wrapper is not
     thread-safe; confine each instance to one thread (the combiner).
+    :meth:`global_state` gives the global (K, …) heap stack whatever the
+    placement (a collective under a mesh).
 
     Rounds dispatches (:meth:`apply_rounds_async`, :meth:`mixed_rounds`)
     lower onto packed device rows (:func:`_sharded_mixed_rows`), padded to
-    the next power of two with no-op read rows.  On a donated CUDA heap
-    such a dispatch is ONE replay of a CUDA graph captured at the first
-    dispatch of its row count (the pow2 padding bounds the captured graphs
-    at one per power of two, as it bounds the reference's jit cache): the
-    rows go to the device in one copy, into the graph's static input, and
-    the answers are cloned out of its static output after the replay, so a
-    later replay cannot overwrite an unconsumed handle.  The graph binds
+    the next power of two with no-op read rows.  On a donated, stacked
+    CUDA heap such a dispatch is ONE replay of a CUDA graph captured at the
+    first dispatch of its row count (the pow2 padding bounds the captured
+    graphs at one per power of two, as it bounds the reference's jit
+    cache): the rows go to the device in one copy, into the graph's static
+    input, and the answers are cloned out of its static output after the
+    replay, so a later replay cannot overwrite an unconsumed handle.  The graph binds
     the live ``a`` and ``size``: a restore copies into them, and rebinding
     :attr:`state` to other tensors drops the cache.  ``donate=False``
     clones the heap every dispatch and stays eager, as the reference's
@@ -423,12 +467,12 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
     structure = "pq"
     read_only: Set[str] = {"values", "peek_min"}
     supports_megapass = True
-    supports_placement = False
+    supports_placement = True
 
     def __init__(self, capacity: int, c_max: int, n_shards: int = 4,
                  values=None, key_range: Optional[Tuple[float, float]] = None,
                  donate: bool = True, fault_plan=None, guard=None,
-                 device=None):
+                 placement=None, comm=None, device=None):
         if c_max < 1:
             raise ValueError("c_max must be >= 1")
         if n_shards < 1:
@@ -439,7 +483,9 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         self.capacity = int(capacity)
         self.n_shards = int(n_shards)
         self.donate = bool(donate)
-        self.device = resolve_device(device)
+        self.placement = resolve_placement(placement)
+        self.placement.validate(self.n_shards)
+        self.device = placed_device(self.placement, device)
         self.key_range = (
             (float(key_range[0]), float(key_range[1]))
             if key_range is not None else None)
@@ -448,7 +494,14 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         self.graph_captures = 0
         self.graph_replays = 0
         self._graphs = {}
+        self._comm = comm if comm is not None else self.placement.comm()
         self.state = self._init_state(values)
+
+    @property
+    def comm(self):
+        """The placement's collectives this queue runs on (its process
+        group under a mesh, the identities when stacked)."""
+        return self._comm
 
     @property
     def state(self) -> ShardedHeapState:
@@ -481,15 +534,22 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         # host occupancy mirror: exact at init, upper bounds between syncs
         self._sizes_ub = size.astype(np.int64).copy()
         self._total = int(size.sum())
+        a, size = self.placement.put((a, size), K)   # this rank's rows
         return state_from_numpy(a, size, self.device)
 
+    def global_state(self) -> ShardedHeapState:
+        """The (K, capacity) heap stack and (K,) sizes: the live state when
+        stacked, an all-gather of every rank's rows under a mesh (every
+        rank calls it)."""
+        return self.placement.gather(self.state, self._comm)
+
     def __len__(self) -> int:
-        return int(self.state.size.sum())
+        return int(self._comm.sum(self.state.size.sum()))
 
     @property
     def _pass_kw(self):
         return dict(c_max=self.c_max, n_shards=self.n_shards,
-                    key_range=self.key_range)
+                    key_range=self.key_range, comm=self._comm)
 
     def _refresh_sizes(self, sizes) -> None:
         """Replace the occupancy mirror with fetched true sizes (read at
@@ -536,8 +596,9 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         self.state.size.copy_(st.size)
 
     def _fetch_sizes(self):
-        # a copy taken at consumption time: later passes mutate size in place
-        return self.state.size.clone()
+        # a copy taken at consumption time: later passes mutate size in
+        # place (under a mesh, all K sizes gathered from the ranks)
+        return self._comm.gather(self.state.size.clone())
 
     def _step(self, ne, buf, ni):
         def thunk():
@@ -631,7 +692,8 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         answers."""
         rows = torch.from_numpy(_bpq.pack_rows(specs, self.c_max)).to(
             self.device, non_blocking=True)
-        if self.donate and self.device.type == "cuda":
+        if (self.donate and self.device.type == "cuda"
+                and not self.placement.is_mesh):
             g = self._graphs.get(len(specs))
             if g is None:
                 g = self._graphs[len(specs)] = self._capture(len(specs))
@@ -774,7 +836,7 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         return _PQPeekRound(None, 0, 0)
 
     def values(self) -> list:
-        a, sizes = to_numpy(self.state)
+        a, sizes = to_numpy(self.global_state())
         return np.sort(np.concatenate(
             [a[k, 1:sizes[k] + 1] for k in range(self.n_shards)])).tolist()
 
@@ -811,13 +873,15 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             return []
         if all(m == "peek_min" for m in methods):
             one = torch.ones((), dtype=torch.int32, device=self.device)
-            merged, _k = _peek_min_impl(self.state, one, c_max=self.c_max)
+            merged, _k = _peek_min_impl(self.state, one, c_max=self.c_max,
+                                        comm=self._comm)
             head, sizes = _bpq._host_fetch((merged[:1],
                                             self._fetch_sizes()))
             self._refresh_sizes(sizes)
             v = float(head[0])
             return [v if np.isfinite(v) else None] * len(methods)
-        a, sizes = _bpq._host_fetch((self.state.a, self._fetch_sizes()))
+        a, sizes = _bpq._host_fetch((self._comm.gather(self.state.a),
+                                     self._fetch_sizes()))
         self._refresh_sizes(sizes)
         vals: List[float] = []
         for k in range(self.n_shards):
@@ -948,7 +1012,7 @@ def _dump_compare(ds: ShardedBatchedPQ, oracle) -> None:
                for g, w in zip(got, want)), (got, want)
     # device heap invariant: slot 0 of every shard is the +inf scratch,
     # parents never exceed children (the §4 layout)
-    a, sizes = to_numpy(ds.state)
+    a, sizes = to_numpy(ds.global_state())
     for k in range(ds.n_shards):
         assert np.isinf(a[k, 0]), a[k, 0]
         assert _bpq.check_heap_property(a[k], int(sizes[k])), (k, a[k])
@@ -986,5 +1050,8 @@ substrate.register(substrate.StructureSpec(
             # reads the megapass conformance stage drives: peek_min rides
             # the fused rows ("values" dumps the whole heap stack)
             "megapass_read": lambda rng, k, ctx: (["peek_min"] * k,
-                                                  [None] * k)},
+                                                  [None] * k),
+            # the constructor takes placement= (DESIGN.md §18); serve.py
+            # keys --mesh-shards off this marker
+            "placement": True},
 ))

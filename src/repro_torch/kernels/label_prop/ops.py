@@ -247,14 +247,59 @@ def label_step(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor, *,
     return out
 
 
+def propagate_collective(eu: torch.Tensor, ev: torch.Tensor,
+                         out: torch.Tensor, comm, *,
+                         valid: Optional[torch.Tensor] = None,
+                         when: Optional[torch.Tensor] = None,
+                         prop=propagate) -> None:
+    """The full fixpoint from the identity with the EDGE SLOTS split
+    across a mesh (DESIGN.md §18; the reference's ``_cc_collective``).
+
+    ``comm``: a placed structure's collectives (``core.placement``): rank
+    ``d`` of ``comm.n`` runs the fixpoint over its block of the slots
+    (padded with dead slots to a multiple of ``n``) into a table of its
+    own, an all-gather gives the ``n`` tables, and one more fixpoint over
+    the ``n · |out|`` star edges ``(v, L_d[v])`` writes ``out``.  The star
+    graphs have the components of the blocks, whose union is the graph,
+    and the component-min labelling is unique: ``out`` is the stacked
+    rebuild's bit for bit.  ``valid`` and ``when`` as :func:`propagate`
+    (gated off, the block tables stay the identity and ``out`` is not
+    written).  ``prop`` is the yardstick seam (:func:`propagate_plain` on
+    the card's plain pass); every rank of the mesh calls this, or none
+    does (the caller's host-side decision is the same on every rank)."""
+    n, E = out.numel(), eu.numel()
+    dev = out.device
+    blk = -(-max(E, 1) // comm.n)
+    pad = blk * comm.n - E
+    if valid is None:
+        valid = torch.ones(E, dtype=torch.bool, device=dev)
+    if pad:
+        z = torch.zeros(pad, dtype=torch.int32, device=dev)
+        eu, ev = torch.cat([eu, z]), torch.cat([ev, z])
+        valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool,
+                                              device=dev)])
+    sl = slice(comm.index * blk, (comm.index + 1) * blk)
+    table = torch.arange(n, dtype=torch.int32, device=dev)
+    prop(eu[sl], ev[sl], table, valid=valid[sl], when=when)
+    tables = comm.gather(table[None])                      # (n_ranks, n)
+    star_u = torch.arange(n, dtype=torch.int32, device=dev).repeat(comm.n)
+    prop(star_u, tables.reshape(-1), out, when=when)
+
+
 def connected_components(eu: torch.Tensor, ev: torch.Tensor, *, n: int,
-                         n_shards: int = 1, use_pallas: bool = False
-                         ) -> torch.Tensor:
+                         n_shards: int = 1, use_pallas: bool = False,
+                         placement=None) -> torch.Tensor:
     """Component-min labels of the graph on [0, n) with the given edges
     (invalid slots sanitized to (0, 0)).  ``n_shards``/``use_pallas`` are
-    kept for API parity: the device picks the path."""
+    kept for API parity: the device picks the path.  ``placement``: a
+    ``core.placement.MeshPlacement`` splits the edges across its ranks
+    (:func:`propagate_collective`, over the mesh's own group; every rank
+    of the mesh calls this); ``None`` or stacked runs one launch."""
     out = torch.empty(n, dtype=torch.int32, device=eu.device)
-    propagate(eu, ev, out)
+    if placement is not None and placement.is_mesh:
+        propagate_collective(eu, ev, out, placement.comm(own_group=False))
+    else:
+        propagate(eu, ev, out)
     return out
 
 
@@ -272,4 +317,5 @@ def merge_labels(labels: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
 
 __all__ = ["BODIES", "MAX_ITERS", "SMALL_E", "connected_components",
            "label_step", "label_step_plain", "merge_labels", "pick_body",
-           "propagate", "propagate_body", "propagate_plain"]
+           "propagate", "propagate_body", "propagate_collective",
+           "propagate_plain"]

@@ -21,8 +21,10 @@ Differences from the reference:
   structures have no switch between kernel and plain version — the
   device decides — so no ``use_pallas`` reaches ``spec.make``, and
   ``run_serving`` has no ``graph_use_pallas``.
-* ``--mesh-shards`` / ``mesh_shards`` raise ``NotImplementedError`` until
-  the port's placement layer lands (ROADMAP A9).
+* ``--mesh-shards`` / ``mesh_shards`` build the mesh on
+  ``torch.distributed`` (``launch/mesh.py``); the scheduler combines on
+  one rank, so a mesh of more than one rank raises
+  ``NotImplementedError`` (ROADMAP A24).
 * The decode workload keeps ``configs.get_reduced(arch_id)`` and ``seed``,
   but the port draws its weights from a ``torch.Generator``, so its tokens
   equal the reference's only when the weights are carried across
@@ -51,8 +53,10 @@ from .. import configs
 from ..core import substrate
 from ..core.batched_pq import resolve_device
 from ..core.faults import FaultPlan
+from ..core.placement import MeshPlacement, require_one_rank
 from ..models import lm, transformer
 from ..serving import PCScheduler, SerialScheduler
+from .mesh import make_combining_mesh
 
 
 class DecodeExecutor:
@@ -265,9 +269,17 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
     alternating update/read pair (structure workloads only; the decode
     workload ignores it).
 
-    ``mesh_shards``: a device mesh placement (DESIGN.md §18); raises
-    ``NotImplementedError`` until the port's placement layer lands
-    (ROADMAP A9).
+    ``mesh_shards``: place the workload's K shards across a device mesh
+    (DESIGN.md §18).  Sets K to this value, builds the 1-D ``("shard",)``
+    combining mesh from the current world (``make_combining_mesh`` — D =
+    the largest divisor of K that fits; a one-process world gives D = 1)
+    and threads the ``MeshPlacement`` into BOTH the workload structure
+    (a structure without the registry's placement marker raises
+    ``ValueError``; ``decode`` places the deadline PQ alone) and the PC
+    scheduler's deadline PQ.
+    The combiner runs on one rank: a mesh of more than one rank raises
+    ``NotImplementedError`` (ROADMAP A24).  ``stats["placement"]`` names
+    the layout.
 
     ``fault_plan``: optional deterministic :class:`FaultPlan`
     (DESIGN.md §15) shared between the workload structure (transactional
@@ -279,12 +291,21 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
     ``device``: ``None`` means the card and raises without one; the
     tests pass ``"cpu"``.
     """
-    if mesh_shards is not None:
-        raise NotImplementedError(
-            "--mesh-shards: the port places shards on one device only "
-            "until its placement layer lands (ROADMAP A9)")
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
+    mesh_pl = None
+    if mesh_shards is not None:
+        if mesh_shards < 1:
+            raise ValueError("--mesh-shards must be >= 1")
+        placed = substrate.try_get(workload)
+        if workload != "decode" and (
+                placed is None or not placed.extras.get("placement")):
+            raise ValueError(
+                f"workload {workload!r} does not support --mesh-shards "
+                "(no placement= constructor knob)")
+        mesh_pl = MeshPlacement(make_combining_mesh(mesh_shards,
+                                                    device=device))
+        require_one_rank(mesh_pl, "run_serving(mesh_shards=)")
     if workload != "decode" and substrate.try_get(workload) is not None:
         spec = substrate.get(workload)
         if not spec.serve:
@@ -294,6 +315,9 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
         if workload == "graph":
             serve_kw["n"] = n_vertices
             serve_kw.setdefault("edge_capacity", 16 * n_vertices)
+        if mesh_pl is not None:
+            serve_kw["n_shards"] = mesh_shards
+            serve_kw["placement"] = mesh_pl
         ex: Any = StructureExecutor(
             spec, megapass=megapass, donate=scheduler != "pc-nodonate",
             fault_plan=fault_plan, device=device, **serve_kw)
@@ -315,10 +339,14 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
         raise ValueError(f"unknown workload {workload!r}")
 
     if scheduler in ("pc", "pc-async", "pc-nodonate", "pc-pallas"):
+        sch_kw: Dict[str, Any] = {}
+        if mesh_pl is not None:
+            # the deadline PQ rides the same mesh, with the same K
+            sch_kw = dict(n_shards=mesh_shards, pq_placement=mesh_pl)
         sch = PCScheduler(ex, max_batch=max_batch, use_pq=True,
                           donate=scheduler != "pc-nodonate",
                           rounds_cap=rounds_cap, tier=tier,
-                          fault_plan=fault_plan, device=device)
+                          fault_plan=fault_plan, device=device, **sch_kw)
     elif scheduler == "serial":
         sch = SerialScheduler(ex)
     else:
@@ -369,6 +397,9 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
         if scheduler != "serial" else 1.0,
         "tier_decisions": dict(getattr(sch, "tier_decisions", {})),
     }
+    if mesh_pl is not None:
+        stats["placement"] = mesh_pl.describe()
+        stats["mesh_devices"] = mesh_pl.n_devices
     if getattr(ex, "megapass_dispatches", 0):
         stats["megapass_dispatches"] = ex.megapass_dispatches
         stats["rounds_per_dispatch"] = round(
@@ -425,7 +456,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "through one mixed_rounds call (DESIGN.md §17)")
     ap.add_argument("--mesh-shards", type=int, default=None, metavar="K",
                     help="place K shards across a device mesh "
-                         "(DESIGN.md §18); not ported yet: raises")
+                         "(DESIGN.md §18): pq, map and graph, and the "
+                         "deadline PQ of every PC scheduler")
     ap.add_argument("--tier",
                     choices=["auto", "host", "device", "eliminate"],
                     default="eliminate",

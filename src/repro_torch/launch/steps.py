@@ -1,10 +1,11 @@
 """Step factories: train_step / prefill_step / decode_step.
 
 The port of the reference's ``launch/steps.py`` for one device: ``mesh``
-must be ``None`` (a mesh raises ``NotImplementedError`` until the port's
-placement layer lands, ROADMAP A9).  ``grad_compress`` routes only the
-cross-pod gradient reduction through the int8 quantizer in the
-reference, so with no pod axis it changes nothing here either.
+must be ``None`` (a mesh raises ``NotImplementedError``: a sharded step
+needs the reference's param specs, ``launch/sharding.py``, ROADMAP
+A19).  ``grad_compress`` routes only the cross-pod gradient reduction
+through the int8 quantizer in the reference, so with no pod axis it
+changes nothing here either.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from ..optim.tree import leaves, tree_map
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "the port runs on one device: a mesh needs its placement layer "
-            "(ROADMAP A9)")
+            "the port trains on one device: a mesh needs launch/sharding.py's "
+            "param specs (ROADMAP A19)")
 
 
 def loss_and_grads(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):

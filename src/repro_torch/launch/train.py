@@ -14,8 +14,9 @@ The port of the reference's ``launch/train.py`` on one device:
     (host/device overlap); a step's one blocking fetch is its loss.
 
 Only one device: ``model_parallel > 1``, ``pods > 1`` or more than one
-visible CUDA device raise ``NotImplementedError`` until the port's
-placement layer lands (ROADMAP A9).  ``device=None`` means the card.
+visible CUDA device raise ``NotImplementedError``: a data- or
+model-parallel step needs the reference's param specs
+(``launch/sharding.py``, ROADMAP A19).  ``device=None`` means the card.
 
 Usage:
   python -m repro_torch.launch.train --arch qwen2_0_5b --steps 200 \\
@@ -63,7 +64,7 @@ def _one_device(dev: torch.device, model_parallel: int, pods: int) -> None:
         raise NotImplementedError(
             f"the port trains on one device (model_parallel "
             f"{model_parallel}, pods {pods}, {n_dev} visible devices): a "
-            f"mesh needs its placement layer (ROADMAP A9)")
+            f"mesh needs launch/sharding.py's param specs (ROADMAP A19)")
 
 
 def device_batch(cfg, hb: Dict[str, np.ndarray], step: int, seed: int,

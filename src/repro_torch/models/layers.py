@@ -8,7 +8,7 @@ on the target device and ``lead``, the leading shape of a stack of layers
 (``()`` for one), and draws the reference's distributions (normal scaled
 by ``d_in ** -0.5``, zero biases, unit f32 norm gains), not its bits.  The
 reference's sharding specs (``spec``/``resolve_specs``) are not carried
-over: the port runs on one device (ROADMAP A9).
+over: the port's trainer runs on one device (ROADMAP A19).
 """
 from __future__ import annotations
 

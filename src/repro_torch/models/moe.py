@@ -32,7 +32,8 @@ per-row capacity (T = S), the reference's ``vmap``: here one batched sort
 over (B, S·K) rows.  The shared expert is added in f32 and the sum cast
 back to x's dtype.  The reference's expert-parallel and FSDP layouts
 (``moe_fsdp_axis``, ``moe_ep_serve``) place the weights on a mesh; the
-port has one device (ROADMAP A9) and the leaves keep their shapes.
+port's trainer has one device (ROADMAP A19) and the leaves keep their
+shapes.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ train-mode forward under autograd runs each full period's body under
 only the period's input is kept, and the body runs again in the backward
 pass, so a kernel it launches counts a second launch there.  Without a
 gradient ``remat`` changes nothing.  The reference's ``ShardCtx`` is not
-carried over: the port has one device (A9).
+carried over: the port's trainer has one device (A19).
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ quantization residual is returned as the next step's error feedback.  The
 max is exact, and the division and the round-half-even are correctly
 rounded on both sides, so the port's ``q`` and scales equal the
 reference's bit for bit.  The train step uses it only across a pod axis,
-which the port's one card does not have (ROADMAP A9).
+which the port's one-card trainer does not have (ROADMAP A19).
 """
 from __future__ import annotations
 

@@ -47,9 +47,10 @@ Differences from the reference's constructor:
 * ``pq_use_pallas`` is dropped: the port has no kernel knob.  On the card
   the deadline PQ always runs the hand-written kernels, on the CPU their
   plain versions.
-* ``pq_placement`` is kept in the signature; anything but ``None`` raises
-  ``NotImplementedError`` until the port's placement layer lands
-  (ROADMAP A9).
+* ``pq_placement`` places the deadline PQ's shards (DESIGN.md §18): a
+  ``MeshPlacement`` of one rank works as in the reference; a larger mesh
+  raises ``NotImplementedError`` (ROADMAP A24: each rank's combiner would
+  form different batches).
 * ``pq_donate`` becomes the port's ``donate=``: the PQ's pass updates the
   heap stack in place; False is the clone-per-pass twin.
 * ``device`` (``None`` means the card, and raises without one; the tests
@@ -72,6 +73,7 @@ from ..core.combining import (ALL_TIERS, TIER_DEVICE, TIER_ELIMINATE,
                               TIER_HOST, TierRouter)
 from ..core.faults import (CircuitBreaker, DispatchGuard, FaultPlan,
                            InjectedCombinerKill)
+from ..core.placement import require_one_rank
 from ..core.sharded_pq import ShardedBatchedPQ, host_key
 
 _SENTINEL = object()
@@ -136,9 +138,12 @@ class PCScheduler:
       donate: update the deadline PQ's heap stack in place (default);
         False is the clone-per-pass ablation twin (EXPERIMENTS
         §Ablations).
-      pq_placement: shard layout of the deadline PQ (DESIGN.md §18).  Only
-        ``None`` (the stacked layout) is ported; a mesh placement raises
-        ``NotImplementedError`` (ROADMAP A9).
+      pq_placement: shard layout of the deadline PQ (DESIGN.md §18).
+        None keeps the stacked default; a ``MeshPlacement`` places the K
+        shards on its mesh and runs the passes' merges as collectives
+        (``serve.py --mesh-shards``).  The combiner is one thread of one
+        rank, so a mesh of more than one rank raises
+        ``NotImplementedError`` (ROADMAP A24).
       rounds_cap: cap R on the adaptive multi-round fused dispatch
         (DESIGN.md §12) — one ordering pass may choose up to
         ``rounds_cap · max_batch`` requests (eliminated + extracted) and
@@ -175,10 +180,7 @@ class PCScheduler:
                  router: Optional[TierRouter] = None,
                  fault_plan: Optional[FaultPlan] = None,
                  supervise: bool = True, device=None):
-        if pq_placement is not None:
-            raise NotImplementedError(
-                "pq_placement: the deadline PQ takes the stacked layout "
-                "only until the port's placement layer lands (ROADMAP A9)")
+        require_one_rank(pq_placement, "PCScheduler(pq_placement=)")
         self.step_fn = step_fn
         self.max_batch = max_batch
         self.use_pq = use_pq
@@ -205,9 +207,13 @@ class PCScheduler:
                                  c_max=min(max_batch, 64),
                                  n_shards=n_shards,
                                  donate=donate,
+                                 placement=pq_placement,
                                  guard=pq_guard,
                                  device=device)
             self._pq = ShardedBatchedPQ(**self._pq_ctor)
+            # a rebuilt PQ runs on the first one's collectives: under a
+            # mesh no communicator starts again on the recovery path
+            self._pq_ctor["comm"] = self._pq.comm
             # persistent key→request table: a key is inserted into the
             # device PQ exactly once and stays there until extracted
             self._table: Dict[float, Deque[_Entry]] = {}
@@ -292,7 +298,8 @@ class PCScheduler:
         still unserved when the workers stop (e.g. because a worker
         thread died) is failed with ``RuntimeError`` instead of leaving
         its caller hanging.  A concurrent second ``close`` waits for the
-        shutdown to complete instead of returning early."""
+        shutdown to complete instead of returning early.  The first
+        ``close`` destroys a placed deadline PQ's process group."""
         with self._cond:
             first = not self._closed
             self._closed = True
@@ -335,6 +342,8 @@ class PCScheduler:
         for ent in doomed:
             _fail_future(ent.future, RuntimeError(
                 "scheduler closed before the request was served"))
+        if first and self.use_pq:
+            self._pq.comm.close()      # a placed deadline PQ's group
 
     def __enter__(self) -> "PCScheduler":
         return self

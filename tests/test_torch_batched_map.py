@@ -237,7 +237,7 @@ def test_init_from_items_equals_reference_last_write_wins():
         tbm.ShardedMap(8, c_max=4, items=[(math.nan, 1.0)], device="cpu")
     with pytest.raises(ValueError, match="key_range"):
         tbm.ShardedMap(8, c_max=4, n_shards=2, device="cpu")
-    with pytest.raises(ValueError, match="stacked placement"):
+    with pytest.raises(TypeError, match="not a placement"):
         tbm.ShardedMap(8, c_max=4, placement=object(), device="cpu")
 
 
@@ -277,7 +277,8 @@ def test_registry_entry_builds_the_port_structure():
     assert "map" in substrate.names() and "sketch" in substrate.names()
     ds = spec.make(device="cpu")
     assert isinstance(ds, tbm.ShardedMap) and ds.supports_megapass
-    assert not ds.supports_placement and spec.megapass
+    assert ds.supports_placement and spec.extras["placement"]
+    assert spec.megapass
     host = spec.make_host(ds)
     ctx = spec.new_ctx()
     rng = np.random.default_rng(8)

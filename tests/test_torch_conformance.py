@@ -30,8 +30,12 @@ and tensors, parametrised over the port's five registered structures
   duplicate no op;
 * :func:`make_structure_machine` — a hypothesis state machine over the
   same generators and oracle;
-* :func:`check_placement_parity` — no port structure takes a placement
-  yet (ROADMAP A9), so no spec may claim one.
+* :func:`check_placement_parity` — on every structure advertising
+  ``supports_placement``: a one-rank ``MeshPlacement`` twin and the
+  stacked twin take the same seeded traffic, answers and every (gathered)
+  state leaf bit-equal, refusals atomic on both, the megapass and
+  fault-injected restores included; the class flag and the registry's
+  marker agree on every structure.
 
 The broken toys of the reference's ``tests/test_conformance.py`` follow,
 against the port's structures: each defect is caught by its stage.
@@ -399,16 +403,95 @@ def check_megapass_vs_sequential(spec: StructureSpec, *, seed: int = 37,
 
 
 # ---------------------------------------------------------------------------
-# Placement parity (DESIGN.md §18): none on the port until ROADMAP A9
+# Placement parity: MeshPlacement ≡ StackedPlacement (DESIGN.md §18)
 # ---------------------------------------------------------------------------
-def check_placement_parity(spec: StructureSpec) -> None:
-    """No port structure takes a placement yet, so none may claim one —
-    neither by the class flag nor by the registry's extras marker."""
-    ds = make_cpu(spec)
-    assert not getattr(type(ds), "supports_placement", False), \
-        f"{spec.name}: claims supports_placement before the port has it"
-    assert not spec.extras.get("placement", False), \
-        f"{spec.name}: the registry claims placement before the port"
+def _global_leaves(ds) -> List[torch.Tensor]:
+    """Every state leaf in the stacked (K, …) layout (gathered from the
+    mesh's ranks when placed)."""
+    state = ds.global_state() if hasattr(ds, "global_state") else ds.state
+    return leaves(state)
+
+
+def check_placement_parity(spec: StructureSpec, *, seed: int = 53,
+                           iters: int = 12) -> bool:
+    """The reference's stage: a structure advertising
+    ``supports_placement`` and its one-rank ``MeshPlacement`` twin (the
+    current world's mesh; every collective still runs) take the SAME
+    seeded traffic and must answer alike and land every state leaf
+    bit-equal, refusals included (atomic on both sides), the fused
+    megapass included, and fault-injected snapshot/restore included.  The
+    class flag and the registry's marker must agree.  Returns False for
+    structures without the flag."""
+    from repro_torch.core.placement import MeshPlacement
+    from repro_torch.launch.mesh import make_combining_mesh
+
+    ds_s = make_cpu(spec)
+    flag = bool(getattr(type(ds_s), "supports_placement", False))
+    assert flag == bool(spec.extras.get("placement", False)), \
+        f"{spec.name}: class flag and registry marker disagree"
+    if not flag:
+        return False
+    n_shards = int(getattr(ds_s, "n_shards", 1))
+    pl = MeshPlacement(make_combining_mesh(n_shards, device="cpu"))
+    ds_m = make_cpu(spec, placement=pl)
+    rng = np.random.default_rng(seed)
+    ctx = spec.new_ctx()
+
+    def states_agree(tag):
+        for idx, (a, b) in enumerate(zip(_global_leaves(ds_s),
+                                         _global_leaves(ds_m))):
+            assert _same_bits(a, b), \
+                (f"{spec.name}: placement twins diverged ({tag}, leaf "
+                 f"{idx}, {pl.describe()})")
+
+    for it in range(iters):
+        k = int(rng.integers(0, 12))
+        if rng.random() < 0.6:
+            m, i = spec.gen_update(rng, k, ctx)
+            got_s = ds_s.update_batch(list(m), list(i))
+            got_m = ds_m.update_batch(list(m), list(i))
+        else:
+            m, i = spec.gen_read(rng, k, ctx)
+            got_s = ds_s.read_batch(list(m), list(i))
+            got_m = ds_m.read_batch(list(m), list(i))
+        assert len(got_s) == len(got_m) == len(m)
+        assert got_s == got_m, (spec.name, "placement parity", it)
+        states_agree(f"iter {it}")
+
+    if spec.refusal_batch is not None:
+        bm, bi = spec.refusal_batch(ds_m)
+        before = _fingerprint(ds_m)
+        for twin in (ds_s, ds_m):
+            with pytest.raises(ValueError):
+                twin.update_batch(list(bm), list(bi))
+        for b, a in zip(before, _fingerprint(ds_m)):
+            np.testing.assert_array_equal(
+                b, a, err_msg=f"{spec.name}: mesh refusal was not atomic")
+        states_agree("post-refusal")
+
+    gen_read = spec.extras.get("megapass_read", spec.gen_read)
+    c_max = int(getattr(ds_s, "c_max", 8))
+    rounds = []
+    for r in range(4):
+        k = int(rng.integers(1, c_max + 3))
+        m, i = (spec.gen_update if r % 2 == 0 else gen_read)(rng, k, ctx)
+        rounds.append(("update" if r % 2 == 0 else "read",
+                       list(m), list(i)))
+    got_s = [h.result() for h in ds_s.mixed_rounds(rounds)]
+    got_m = [h.result() for h in ds_m.mixed_rounds(rounds)]
+    assert got_s == got_m, (spec.name, "placement megapass parity")
+    states_agree("post-megapass")
+
+    plan = FaultPlan(seed=seed, dispatch_fail_rate=0.2)
+    ds_f = make_cpu(spec, placement=pl, fault_plan=plan)
+    run_differential(ds_f, spec.make_host(ds_f), spec,
+                     np.random.default_rng(seed + 1), 25)
+    assert plan.counters.faults_injected > 0, \
+        f"{spec.name}: placement fault probe never fired — vacuous"
+    assert plan.counters.snapshot()["restores"] > 0, \
+        f"{spec.name}: mesh-placed failures were never rolled back"
+    assert _global_leaves(ds_f)[0].shape == _global_leaves(ds_s)[0].shape
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -519,8 +602,19 @@ def test_megapass_vs_sequential(spec):
     check_megapass_vs_sequential(spec)
 
 
-def test_placement_parity(spec):
-    check_placement_parity(spec)
+@pytest.fixture
+def one_rank_world():
+    """The one-rank process group ``make_combining_mesh`` starts, torn
+    down after the test so no group outlives it in the worker."""
+    yield
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_placement_parity(spec, one_rank_world):
+    assert check_placement_parity(spec) == (spec.name in ("graph", "map",
+                                                          "pq"))
 
 
 @pytest.mark.faults

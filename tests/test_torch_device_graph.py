@@ -243,5 +243,5 @@ def test_registry_entry_builds_the_port_structure():
     spec.dump_compare(ds, host)
     with pytest.raises(ValueError):
         ds.update_batch(*spec.refusal_batch(ds))
-    with pytest.raises(ValueError, match="stacked placement"):
+    with pytest.raises(TypeError, match="not a placement"):
         tdg.DeviceGraph(N, placement=object(), device="cpu")

@@ -15,6 +15,7 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = [
     "repro_torch", "repro_torch.core", "repro_torch.core.batched_pq",
     "repro_torch.core.sharded_pq", "repro_torch.core.pc_pq",
+    "repro_torch.core.placement", "repro_torch.launch.mesh",
     "repro_torch.core.combining", "repro_torch.core.faults",
     "repro_torch.core.flat_combining", "repro_torch.core.locks",
     "repro_torch.core.seq_pq", "repro_torch.core.skiplist_pq",

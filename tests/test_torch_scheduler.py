@@ -395,9 +395,76 @@ def test_pq_overflow_refusal_keeps_resident_requests():
     assert sch._peek_resident() is None         # heap fully drained
 
 
-def test_mesh_placement_waits_for_the_placement_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+@pytest.fixture
+def one_rank_world():
+    """The one-rank process group ``make_combining_mesh`` starts, torn
+    down after the test so no group outlives it in the worker."""
+    yield
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_placement_waits_for_the_placement_layer(one_rank_world):
+    """``pq_placement`` on a one-rank mesh (DESIGN.md §18): the deadline
+    PQ's shards live on the mesh and the scheduler orders the same
+    published stream exactly as the stacked one, pass by pass; junk is
+    refused."""
+    from repro_torch.core.placement import MeshPlacement
+    from repro_torch.launch.mesh import make_combining_mesh
+
+    with pytest.raises(TypeError, match="not a placement"):
         _pcs(lambda rows: rows, pq_placement=object())
+    kw = dict(max_batch=4, rounds_cap=2, n_shards=2, pq_capacity=64,
+              tier="device", device="cpu")
+    pl = MeshPlacement(make_combining_mesh(2, device="cpu"))
+    stacked = _idle(PCScheduler, **kw)
+    placed = _idle(PCScheduler, pq_placement=pl, **kw)
+    try:
+        assert placed._pq.placement is pl and pl.is_mesh
+        epoch = 0
+        for p, keys in enumerate(_stream(5) + [[] for _ in range(4)]):
+            es = _entries(_Entry, BatchRequest, keys, epoch)
+            ep = _entries(_Entry, BatchRequest, keys, epoch)
+            epoch += len(keys)
+            got_s = [[e.epoch for e in b] for b in stacked._order(es)]
+            got_p = [[e.epoch for e in b] for b in placed._order(ep)]
+            assert got_p == got_s, f"pass {p}: chosen epochs differ"
+            assert _snapshot(placed) == _snapshot(stacked), f"pass {p}"
+        assert placed.pq_dispatches > 0
+    finally:
+        stacked.close()
+        placed.close()
+
+
+def test_mesh_placed_pq_keeps_its_communicator_across_takeover(
+        one_rank_world):
+    """A combiner kill rebuilds the placed deadline PQ on the first
+    queue's group (no communicator starts on the recovery path), every
+    request is served once, and ``close`` destroys that group."""
+    from repro_torch.core.placement import MeshPlacement
+    from repro_torch.launch.mesh import make_combining_mesh
+
+    pl = MeshPlacement(make_combining_mesh(2, device="cpu"))
+    plan = FaultPlan(0, kill_combiner_at_pass=2)
+    served = []
+
+    def step(xs):
+        served.extend(xs)
+        return [x * 2 for x in xs]
+
+    s = _pcs(step, max_batch=4, n_shards=2, fault_plan=plan,
+             pq_placement=pl)
+    comm = s._pq.comm
+    first = s._pq
+    futs = [s.submit_async(i, deadline=float(i % 5)) for i in range(24)]
+    assert [f.result(timeout=WAIT) for f in futs] == [i * 2
+                                                     for i in range(24)]
+    assert s.takeovers >= 1 and s._pq is not first
+    assert s._pq.comm is comm and comm.group is not None
+    s.close()
+    assert Counter(served) == Counter(range(24))
+    assert comm.group is None
 
 
 # ---------------------------------------------------------------------------

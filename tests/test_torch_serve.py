@@ -14,8 +14,9 @@
   cache patched to f32, as ``tests/test_torch_models.py`` does).
 - ``run_serving`` for every workload x scheduler: the reference's stats
   keys, ``device_steps`` of the PC schedulers ≤ serial's; the CLI, the
-  fault plan built from its flags, and the refusals (a mesh placement
-  until ROADMAP A9, no device without CUDA).
+  fault plan built from its flags, ``--mesh-shards`` on a one-rank mesh
+  (the placed workloads and decode served, under faults too, the other
+  structures refused), and the refusal of a device without CUDA.
 """
 import os
 import subprocess
@@ -64,8 +65,12 @@ def test_registry_serve_kw_matches_the_reference():
     for name in WORKLOADS:
         assert (tsub.get(name).extras["serve_kw"]
                 == jsub.get(name).extras["serve_kw"]), name
-    # no placement marker until the port's placement layer (ROADMAP A9)
-    assert not any(tsub.get(n).extras.get("placement") for n in WORKLOADS)
+    # the placement marker sits on the structures whose constructor takes
+    # placement= (DESIGN.md §18), as in the reference
+    for name in WORKLOADS:
+        marked = bool(tsub.get(name).extras.get("placement"))
+        assert marked == bool(jsub.get(name).extras.get("placement")), name
+        assert marked == (name in ("graph", "map", "pq")), name
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +228,53 @@ def test_build_fault_plan_matches_the_reference(argv):
                 == {f: getattr(want, f) for f in fields})
 
 
-def test_mesh_shards_wait_for_the_placement_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        serve.run_serving(workload="pq", mesh_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        serve.main(["--device", "cpu", "--workload", "pq",
-                    "--mesh-shards", "2"])
+@pytest.fixture
+def one_rank_world():
+    """The one-rank process group ``make_combining_mesh`` starts, torn
+    down after the test so no group outlives it in the worker."""
+    yield
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_shards_wait_for_the_placement_layer(one_rank_world):
+    """``--mesh-shards 4`` on a one-process world (D = 1): the placed
+    workloads serve every request with the reference's stats keys and
+    layout name; ``decode`` places its deadline PQ alone, as the
+    reference does; a structure without the placement marker is
+    refused; under the standard fault plan the combiner's takeover
+    rebuilds the placed deadline PQ and every request is still served."""
+    want = jserve.run_serving(workload="pq", sessions=2,
+                              requests_per_session=2, scheduler="pc",
+                              mesh_shards=4)
+    for name in ("pq", "map", "graph"):
+        stats = serve.run_serving(workload=name, sessions=2,
+                                  requests_per_session=3, mesh_shards=4,
+                                  scheduler="pc-async", device="cpu")
+        assert sorted(stats) == sorted(want), name
+        assert stats["placement"] == want["placement"] \
+            == "mesh(D=1, axis='shard')"
+        assert stats["requests"] == 6 and stats["mesh_devices"] == 1
+    stats = serve.main(["--device", "cpu", "--workload", "pq",
+                        "--mesh-shards", "4"])
+    assert stats["placement"] == "mesh(D=1, axis='shard')"
+    stats = serve.run_serving(workload="decode", sessions=2,
+                              requests_per_session=2, n_tokens=2,
+                              prompt_len=6, max_batch=4, mesh_shards=4,
+                              device="cpu")
+    assert stats["placement"] == "mesh(D=1, axis='shard')"
+    assert stats["requests"] == 4 and stats["mesh_devices"] == 1
+    stats = serve.main(["--device", "cpu", "--workload", "pq",
+                        "--scheduler", "pc-async", "--faults", "standard",
+                        "--requests", "16", "--mesh-shards", "4"])
+    assert stats["requests"] == 128
+    assert stats["faults"]["scheduler_takeovers"] >= 1
+    for name in ("unionfind", "sketch"):
+        with pytest.raises(ValueError, match="mesh-shards"):
+            serve.run_serving(workload=name, mesh_shards=4, device="cpu")
+    with pytest.raises(ValueError, match="mesh-shards"):
+        serve.run_serving(workload="pq", mesh_shards=0, device="cpu")
 
 
 def test_serving_entry_points_refuse_to_run_without_cuda():

@@ -11,7 +11,7 @@
 - ``remat`` on equals ``remat`` off, bit for bit.
 - The trainer (``launch/train.py`` with ``device="cpu"``): the reference's
   four integration tests (``tests/test_train_integration.py``), a forced
-  straggler applied once, the A9 refusals and the CLI.
+  straggler applied once, the A19 refusals and the CLI.
 
 Tolerances, each with its reason:
 
@@ -195,7 +195,7 @@ def test_steps_refuse_a_mesh_and_serve_without_grad():
     tc = tconfigs.get_reduced("qwen2_0_5b")
     for make in (tsteps.make_train_step, tsteps.make_prefill_step,
                  tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A19"):
             make(tc, object())
     params = tt.model_init(0, tc, device="cpu")
     cache = tt.init_cache(tc, 2, 16, device="cpu")
@@ -282,7 +282,7 @@ def test_watchdog_and_throughput_format():
 
 def test_train_refuses_more_than_one_device():
     for kw in (dict(model_parallel=2), dict(pods=2)):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A19"):
             train("qwen2_0_5b", steps=1, device="cpu", **kw)
 
 
