@@ -302,8 +302,22 @@ each printing a line:
    the plain scans, within 4x the two plain paths' distance; (d)
    Qwen2-0.5B crashed and resumed from its checkpoint, its final loss
    within 2e-3 of an uninterrupted run's; (e) ``flash_attention``
-   refuses a gradient.  ``python3 chip_smoke.py --train`` runs phases 2
-   and 23 alone.
+   refuses a gradient; (f) the other families at full width, 10 steps of
+   2 x 2,048 each (``FAMILY_TRAIN_RUNS``): HuBERT-XLarge at all 48 layers
+   through ``train()``, deepseek-V2-Lite (the dense prefix and 7 MoE
+   layers) and Llama-3.2-Vision (2 periods, 2 cross layers) through
+   ``train()``'s own step, pipeline and ``device_batch`` (:func:`cut_train`:
+   ``train()`` has no depth argument), each loss falling, with the
+   parameter count and the 12 bytes a parameter reckoned; (g)
+   ``attn_remat`` on the card: Qwen2-0.5B one train step of batch 1 at
+   S = 4,096, 8,192 and 16,384 with the flag on and off (and, under
+   ``--train``, at 32,768 on), peak memory and step ms
+   (:func:`remat_sweep`); the loss and every
+   gradient with the flag on bit-equal to the flag off at 2 x 2,048; on
+   an f32 deepseek (the prefix and 2 MoE layers) the flag on within 2x the
+   spread of two runs with the flag off (:func:`remat_checks`).  Every
+   model trains with its config's ``attn_remat``.  ``python3 chip_smoke.py
+   --train`` runs phases 2 and 23 alone.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -4988,6 +5002,28 @@ GRAD_FLOOR = 2.0 ** -20
 RESTART = dict(steps=4, ckpt_every=2, fail_at_step=3, batch=2, seq=512)
 RESTART_RTOL = 2e-3
 FLOP_BWD_RWKV = 18             # a state element a step: see rwkv6_scan_bwd.cu
+# (f): the other families at full width, 10 steps of the pipeline's
+# batches each; (arch, batch, seq[, layers]): with ``layers`` the depth is
+# cut (the prefix and 7 MoE layers; 2 periods of 5) and the rows run
+# train()'s step in cut_train(), whose loop is train()'s
+FAMILY_TRAIN_STEPS = 10
+FAMILY_TRAIN_RUNS = (("hubert_xlarge", 2, 2048),
+                     ("deepseek_v2_lite_16b", 2, 2048, DEEPSEEK_LAYERS),
+                     ("llama_3_2_vision_11b", 2, 2048, VISION_LAYERS))
+TRAIN_BYTES_PER_PARAM = 12     # bf16 weights and gradients, f32 moments
+DEVICE_BYTES = 80e9            # the H100's memory
+# (g): attn_remat on the card.  Qwen2-0.5B, batch 1, one timed train step
+# a point, period remat on; the long point flag on only, and under --train
+# only (its step takes minutes: PERF.md §6, PR 27)
+REMAT_SEQS = (4096, 8192, 16384)
+REMAT_LONG = 32768
+REMAT_BIT = (2, 2048)          # batch, seq of the bit-equality check
+# deepseek as an f32 copy, the prefix and 2 MoE layers: its MoE backward
+# accumulates with atomics on the card, so the flag on is held within
+# REMAT_SPREAD_RATIO x the spread of two runs with the flag off (a third
+# draw of the same noise), not bit for bit
+REMAT_SPREAD_LAYERS = 3
+REMAT_SPREAD_RATIO = 2.0
 
 
 def _rel(torch, got, want):
@@ -5154,16 +5190,14 @@ def scan_bwd_phase(torch, dev, seed, rglru_shapes, rwkv_shapes, timing):
     return rec
 
 
-def _profile_step(torch, dev, cfg, batch, seq, seed):
-    """One warm train step of ``cfg`` (fresh weights from ``seed``) under
+def _profile_step(torch, dev, cfg, params, batch, seq, seed):
+    """One warm train step of ``cfg`` (``params``: fresh weights) under
     the profiler (:func:`profile_once`)."""
     from repro_torch.data import make_pipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import device_batch
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw_init
 
-    params = transformer.model_init(seed, cfg, device=dev)
     opt = adamw_init(params)
     step = make_train_step(cfg, lr=TRAIN_LR)
     tb = device_batch(cfg, make_pipeline(cfg.vocab, seq, batch,
@@ -5173,28 +5207,67 @@ def _profile_step(torch, dev, cfg, batch, seq, seed):
     return profile_once(torch, lambda: step(params, opt, tb), top=6)
 
 
+def cut_train(torch, dev, cfg, *, steps, batch, seq, seed):
+    """``train()``'s loop for a config whose depth is cut (``train()``
+    keeps the reference's signature, which has no depth argument): fresh
+    weights from ``seed``, ``make_train_step``, the pipeline's prefetch
+    thread and ``device_batch``, the loss fetched each step.  Returns
+    ``train()``'s metrics."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+
+    params = transformer.model_init(seed, cfg, device=dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr=TRAIN_LR)
+    losses, times = [], []
+    it = make_pipeline(cfg.vocab, seq, batch, seed=seed).prefetch(0)
+    try:
+        for step in range(steps):
+            tb = device_batch(cfg, next(it), step, seed, dev)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, tb)
+            losses.append(float(m["loss"].float()))
+            times.append(time.perf_counter() - t0)
+    finally:
+        it.close()
+    step_s = float(np.median(times[1:] if len(times) > 1 else times))
+    return dict(final_loss=losses[-1], first_loss=losses[0], steps=steps,
+                loss_drop=losses[0] - losses[-1], step_ms=step_s * 1e3,
+                tokens_per_s=batch * seq / step_s)
+
+
 def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
-    """(b) ``train()`` for each model of ``runs`` (full width and depth
-    unless ``reduced``, remat on, bf16 parameters, lr TRAIN_LR) with every
-    launch count set to 0 just before and read just after: each loss
-    falls from the first step to the last, each of the model's scan
-    kernels (forward and backward) launched and ``flash_attention`` not
-    (training runs ``xla_chunked``, as the reference's trainer); then one
-    more step of fresh weights under the profiler."""
-    from repro_torch import configs
+    """(b), (f) For each model of ``runs`` (full width, and full depth
+    unless ``reduced`` or the run names its layers, remat and attn_remat
+    as the config sets them, bf16 parameters, lr TRAIN_LR) ``train()``,
+    or :func:`cut_train` for a cut depth, with every launch count set to 0
+    just before and read just after: each loss falls from the first step
+    to the last, each of the model's scan kernels (forward and backward)
+    launched and ``flash_attention`` not (training runs ``xla_chunked``,
+    as the reference's trainer); then one more step of fresh weights under
+    the profiler.  The parameter count and TRAIN_BYTES_PER_PARAM bytes
+    each are reckoned against the card's memory."""
     from repro_torch.launch.train import train
+    from repro_torch.models import transformer
 
     res = {"launches": dict.fromkeys(counters, 0), "models": {}}
-    for arch, batch, seq in runs:
+    for arch, batch, seq, *cut in runs:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+        cfg = _model_cfg(arch, reduced, **(
+            {"n_layers": cut[0]} if cut else {}))
         t0 = time.perf_counter()
-        m, launches = counted(
-            torch, dev, f"train {arch}", counters, TRAIN_EXPECT[arch],
-            lambda: train(arch, steps=steps, reduced=reduced, batch=batch,
-                          seq=seq, lr=TRAIN_LR, seed=seed, log_every=10,
-                          device=dev))
+        fn = ((lambda: cut_train(torch, dev, cfg, steps=steps, batch=batch,
+                                 seq=seq, seed=seed)) if cut else
+              (lambda: train(arch, steps=steps, reduced=reduced, batch=batch,
+                             seq=seq, lr=TRAIN_LR, seed=seed, log_every=10,
+                             device=dev)))
+        m, launches = counted(torch, dev, f"train {arch}", counters,
+                              TRAIN_EXPECT.get(arch, ()), fn)
         check(launches["flash_attention"] == 0, f"train {arch}: training "
               f"launched flash_attention, which has no backward")
         check(math.isfinite(m["final_loss"]) and m["loss_drop"] > 0,
@@ -5207,17 +5280,27 @@ def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
                                      if dev.type == "cuda" else None)
         m["seconds"] = time.perf_counter() - t0
         m["batch"], m["seq"] = batch, seq
-        cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
         m["n_layers"] = cfg.n_layers
-        m["profile"] = (_profile_step(torch, dev, cfg, batch, seq, seed)
+        params = transformer.model_init(seed, cfg, device=dev)
+        m["params"] = transformer.count_params(params)
+        m["bytes_reckoned"] = TRAIN_BYTES_PER_PARAM * m["params"]
+        m["profile"] = (_profile_step(torch, dev, cfg, params, batch, seq,
+                                      seed)
                         if dev.type == "cuda" else None)
+        del params
         res["models"][arch] = m
         pr = m["profile"]
-        out(f"train: {arch} ({cfg.n_layers} layers, batch {batch} x seq "
-            f"{seq}, {steps} steps, lr {TRAIN_LR}, remat {cfg.remat}): loss "
+        out(f"train: {arch} ({cfg.n_layers} layers"
+            + (f" of {_model_cfg(arch, reduced).n_layers}, train()'s step"
+               if cut else "")
+            + f", {m['params']} params: {TRAIN_BYTES_PER_PARAM} bytes each "
+            f"{m['bytes_reckoned']} of {DEVICE_BYTES:.0f}; batch {batch} x "
+            f"seq {seq}, {steps} steps, lr {TRAIN_LR}, remat {cfg.remat}, "
+            f"attn_remat {cfg.attn_remat}): loss "
             f"{m['first_loss']:.6f} -> {m['final_loss']:.6f}, step "
             f"{m['step_ms']:.3f} ms (median), {m['tokens_per_s']:.1f} "
-            f"tokens/s, max_memory_allocated {m['max_memory_allocated']}, "
+            f"{'frames' if cfg.audio_frontend else 'tokens'}/s, "
+            f"max_memory_allocated {m['max_memory_allocated']}, "
             f"kernel launches {_nonzero(launches) or 'none'}"
             + ("" if pr is None else
                f"; one profiled step: {pr['wall_ms']:.3f} ms wall, "
@@ -5230,6 +5313,147 @@ def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
                    for k, (ms, n) in pr["ours"].items()) or "none"))
             + f" ({m['seconds']:.1f} s)")
     return res
+
+
+def remat_sweep(torch, dev, seed, seqs, long_seq, reduced):
+    """(g) Qwen2-0.5B (period remat on), one train step of batch 1 at each
+    S of ``seqs`` with ``attn_remat`` on and off, and at ``long_seq`` on:
+    one warm step a flag at the first S (every S runs the same chunk-pair
+    shapes), then one timed step a point (the loss fetched), the peak
+    memory counted afresh.  Returns one record a point: S, the flag, step
+    ms, ``max_memory_allocated`` and the memory allocated before the step
+    (the weights and the moments)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+
+    cfg0 = _model_cfg(MODEL_ARCH, reduced, remat=True)
+    params = transformer.model_init(seed, cfg0, device=dev)
+    opt = adamw_init(params)
+
+    def step_at(S, flag):
+        cfg = cfg0.with_(attn_remat=flag)
+        tb = device_batch(cfg, make_pipeline(cfg.vocab, S, 1, seed=seed)
+                          .global_batch(0), 0, seed, dev)
+        return make_train_step(cfg, lr=TRAIN_LR), tb
+
+    for flag in (True, False):
+        step, tb = step_at(seqs[0], flag)
+        float(step(params, opt, tb)[2]["loss"])
+    points = [(S, flag) for S in seqs for flag in (True, False)]
+    points += [(long_seq, True)] if long_seq else []
+    rows = []
+    for S, flag in points:
+        step, tb = step_at(S, flag)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        loss = float(step(params, opt, tb)[2]["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        check(math.isfinite(loss), f"attn_remat S {S}: loss {loss}")
+        rows.append(dict(seq=S, attn_remat=flag, step_ms=ms, base=base,
+                         peak=(torch.cuda.max_memory_allocated()
+                               if dev.type == "cuda" else None)))
+        del tb
+    return rows
+
+
+def _tree_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def remat_checks(torch, dev, seed, bit, spread_layers, reduced):
+    """(g) The flag on against the flag off (period remat on): Qwen2-0.5B
+    at ``bit`` = (batch, seq), the loss and every gradient bit for bit
+    (and whether two runs with the flag off are); deepseek as an f32 copy
+    at full width, ``spread_layers`` deep, within REMAT_SPREAD_RATIO x the
+    spread of two runs with the flag off (the loss and the worst gradient
+    leaf, each relative to its max|g|; at least GRAD_FLOOR)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim.tree import leaves
+
+    def batch_of(cfg):
+        return device_batch(cfg, make_pipeline(cfg.vocab, bit[1], bit[0],
+                                               seed=seed).global_batch(0),
+                            0, seed, dev)
+
+    out = {}
+    cfg = _model_cfg(MODEL_ARCH, reduced, remat=True)
+    params = transformer.model_init(seed, cfg, device=dev)
+    tb = batch_of(cfg)
+    l0, g0 = loss_and_grads(params, cfg.with_(attn_remat=False), tb)
+    l1, g1 = loss_and_grads(params, cfg.with_(attn_remat=True), tb)
+    g0, g1 = leaves(g0), leaves(g1)
+    equal = bool(torch.equal(l0, l1)) and _tree_equal(torch, g0, g1)
+    del g1
+    l2, g2 = loss_and_grads(params, cfg.with_(attn_remat=False), tb)
+    rerun = bool(torch.equal(l0, l2)) and _tree_equal(torch, g0, leaves(g2))
+    out["qwen2"] = dict(equal=equal, rerun_equal=rerun, leaves=len(g0),
+                        loss=float(l0), bit=bit)
+    check(equal, f"attn_remat: Qwen2-0.5B's loss or gradients with the flag "
+          f"on differ from the flag off (two runs with the flag off "
+          f"{'are' if rerun else 'are not'} bit-equal)")
+    del params, g0, g2
+
+    cfg = _f32_cfg(_model_cfg(DEEPSEEK_ARCH, reduced, remat=True,
+                              n_layers=spread_layers))
+    params = _upcast(transformer.model_init(seed, cfg, device=dev))
+    tb = batch_of(cfg)
+    l0, g0 = loss_and_grads(params, cfg.with_(attn_remat=False), tb)
+    g0 = leaves(g0)
+    l2, g2 = loss_and_grads(params, cfg.with_(attn_remat=False), tb)
+    spread = _grads_rel(torch, leaves(g2), g0)
+    del g2
+    l1, g1 = loss_and_grads(params, cfg.with_(attn_remat=True), tb)
+    err = _grads_rel(torch, leaves(g1), g0)
+    loss_spread = abs(float(l2) - float(l0))
+    loss_err = abs(float(l1) - float(l0))
+    limit = REMAT_SPREAD_RATIO * max(spread, GRAD_FLOOR)
+    loss_limit = REMAT_SPREAD_RATIO * max(
+        loss_spread, float(np.finfo(np.float32).eps) * abs(float(l0)))
+    out["deepseek"] = dict(layers=cfg.n_layers, leaves=len(g0), err=err,
+                           spread=spread, limit=limit, loss=float(l0),
+                           loss_err=loss_err, loss_spread=loss_spread,
+                           loss_limit=loss_limit)
+    check(err <= limit and loss_err <= loss_limit,
+          f"attn_remat: deepseek's gradients with the flag on {err:.3e} of "
+          f"max|g| off the flag off (limit {limit:.3e}: two runs with the "
+          f"flag off {spread:.3e} apart), the loss {loss_err:.3e} (limit "
+          f"{loss_limit:.3e})")
+    del params, g0, g1
+    return out
+
+
+def remat_line(rows, chk, seconds):
+    d, q = chk["deepseek"], chk["qwen2"]
+    mib = 2 ** 20
+    return ("train: attn_remat, Qwen2-0.5B one train step of batch 1, "
+            "period remat on: " + "; ".join(
+                f"S {r['seq']} flag {'on' if r['attn_remat'] else 'off'} "
+                f"{r['step_ms']:.3f} ms, max_memory_allocated {r['peak']}"
+                + ("" if r["peak"] is None else
+                   f" ({(r['peak'] - r['base']) / mib:.1f} MiB above the "
+                   f"{r['base']} before the step)")
+                for r in rows)
+            + f"; flag on == flag off bit for bit on Qwen2-0.5B at "
+            f"{q['bit'][0]} x {q['bit'][1]} (loss {q['loss']:.6f} and "
+            f"{q['leaves']} gradient leaves; two runs with the flag off "
+            f"bit-equal: {q['rerun_equal']}); deepseek f32 copy, "
+            f"{d['layers']} layers, {d['leaves']} leaves: flag on vs off "
+            f"worst leaf {d['err']:.3e} of max|g| (two runs with the flag "
+            f"off {d['spread']:.3e}, limit {d['limit']:.3e}), loss "
+            f"{d['loss']:.6f} |diff| {d['loss_err']:.3e} (spread "
+            f"{d['loss_spread']:.3e}, limit {d['loss_limit']:.3e}); the "
+            f"MoE backward accumulates with atomics, so bit-equality is not "
+            f"promised there ({seconds:.1f} s)")
 
 
 def grad_check(torch, dev, seed, layers, batch, seq, reduced):
@@ -5354,9 +5578,15 @@ def refusal_check(torch, dev):
 def train_phase(torch, dev, seed, counters, *, runs=TRAIN_RUNS,
                 steps=TRAIN_STEPS, rglru_shapes=RGLRU_BWD_SHAPES,
                 rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
-                grad_batch=GRAD_BATCH, grad_seq=GRAD_SEQ, reduced=False,
+                grad_batch=GRAD_BATCH, grad_seq=GRAD_SEQ,
+                family_runs=FAMILY_TRAIN_RUNS,
+                family_steps=FAMILY_TRAIN_STEPS, remat_seqs=REMAT_SEQS,
+                remat_long=REMAT_LONG, remat_bit=REMAT_BIT,
+                spread_layers=REMAT_SPREAD_LAYERS, reduced=False,
                 timing=True, out=print):
-    """Phase 23: (a) :func:`scan_bwd_phase`, (b) :func:`train_runs`, (c)
+    """Phase 23: (a) :func:`scan_bwd_phase`, (b) and (f)
+    :func:`train_runs` (the launches of both counted as the ``train``
+    path's), (g) :func:`remat_sweep` and :func:`remat_checks`, (c)
     :func:`grad_check`, (d) :func:`restart_check`, (e)
     :func:`refusal_check`; one line each.  Returns the records."""
     t0 = time.perf_counter()
@@ -5365,6 +5595,20 @@ def train_phase(torch, dev, seed, counters, *, runs=TRAIN_RUNS,
     out(bwd_line(rec["bwd"], time.perf_counter() - t0))
     rec["train"] = train_runs(torch, dev, seed, counters, runs, steps,
                               reduced, out)
+    fam = train_runs(torch, dev, seed, counters, family_runs, family_steps,
+                     reduced, out)
+    rec["train"]["models"].update(fam["models"])
+    for k, n in fam["launches"].items():
+        rec["train"]["launches"][k] += n
+    t1 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["remat"] = remat_sweep(torch, dev, seed, remat_seqs, remat_long,
+                               reduced)
+    rec["remat_checks"] = remat_checks(torch, dev, seed, remat_bit,
+                                       spread_layers, reduced)
+    out(remat_line(rec["remat"], rec["remat_checks"],
+                   time.perf_counter() - t1))
     t1 = time.perf_counter()
     rec["grads"] = grad_check(torch, dev, seed, grad_layers, grad_batch,
                               grad_seq, reduced)
@@ -5977,11 +6221,16 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         hubert_frames=HUBERT_FRAMES, train_runs=TRAIN_RUNS,
         train_steps=TRAIN_STEPS, bwd_rglru_shapes=RGLRU_BWD_SHAPES,
         bwd_rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
-        grad_seq=GRAD_SEQ, out=print):
+        grad_seq=GRAD_SEQ, family_train_runs=FAMILY_TRAIN_RUNS,
+        family_train_steps=FAMILY_TRAIN_STEPS, remat_seqs=REMAT_SEQS,
+        remat_long=0, remat_bit=REMAT_BIT,
+        spread_layers=REMAT_SPREAD_LAYERS, out=print):
     """Phases 2–23; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
-    wrappers run their plain versions.)"""
+    wrappers run their plain versions.)  The ``attn_remat`` sweep's long
+    point (``REMAT_LONG``, ~204 s of host time a step on the card) runs
+    under ``--train`` only, unless ``remat_long`` is given."""
     import torch
 
     from repro_torch.core import batched_pq as bpq
@@ -6228,7 +6477,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
     tr = train_phase(torch, dev, seed, counters, runs=train_runs,
                      steps=train_steps, rglru_shapes=bwd_rglru_shapes,
                      rwkv_shapes=bwd_rwkv_shapes, grad_layers=grad_layers,
-                     grad_seq=grad_seq, reduced=model_reduced,
+                     grad_seq=grad_seq, family_runs=family_train_runs,
+                     family_steps=family_train_steps, remat_seqs=remat_seqs,
+                     remat_long=remat_long, remat_bit=remat_bit,
+                     spread_layers=spread_layers, reduced=model_reduced,
                      timing=timing, out=out)
     results["train"] = tr["train"]
     for name, r in tr["bwd"].items():

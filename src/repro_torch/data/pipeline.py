@@ -45,8 +45,15 @@ class DataConfig:
 
 
 def _doc_stream(rng: np.random.Generator, cfg: DataConfig, n_tokens: int):
-    """Sample documents until >= n_tokens tokens are produced."""
-    out = np.empty(n_tokens + cfg.mean_doc_len * 4 + 8, np.int32)
+    """Sample documents until >= n_tokens tokens are produced.
+
+    The buffer holds the last document whole: it may start at
+    ``n_tokens - 1`` and run ``seq_len`` tokens.  (The reference sizes it
+    ``n_tokens + 4·mean_doc_len + 8`` and fails once a document runs past
+    that, which ``seq_len > 4·mean_doc_len + 8`` allows: ROADMAP C5.  The
+    draws and the tokens returned are the same.)"""
+    out = np.empty(n_tokens + max(cfg.mean_doc_len * 4, cfg.seq_len) + 8,
+                   np.int32)
     pos = 0
     while pos < n_tokens:
         dlen = int(rng.geometric(1.0 / cfg.mean_doc_len))

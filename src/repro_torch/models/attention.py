@@ -28,9 +28,11 @@ it is.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .config import ArchConfig, LayerSpec
@@ -70,17 +72,43 @@ def _block_pairs(nq: int, nkv: int, q_chunk: int, kv_chunk: int,
     return out
 
 
+def _pair(qi, kj, vj, m, l, acc, q_pos, k_pos, *, scale: float, cap: float,
+          valid_kv: int, causal: bool, window: int):
+    """One (q chunk, kv chunk) step of the online softmax: the scores with
+    f32 accumulation, softcap, mask, running max, exponentials and the
+    ``l`` / ``acc`` update.  Returns (m_new, l, acc)."""
+    s = (qi @ kj.transpose(-1, -2)) * scale
+    s = softcap(s, cap)
+    mask = k_pos < valid_kv
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + p.to(vj.dtype).float() @ vj.float()
+    return m_new, l, acc
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0, scale: float,
                         cap: float = 0.0, q_chunk: int, kv_chunk: int,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
+                        kv_len: Optional[int] = None,
+                        attn_remat: bool = False) -> torch.Tensor:
     """q: (B,Sq,H,hd); k,v: (B,Skv,K,hd). Returns (B,Sq,H,hd_v).
 
     The plain torch twin of the reference's scan: the same chunk pairs,
     scores with f32 accumulation, the probabilities cast to v's dtype
     before p·v (as the reference does), each q chunk's result cast to q's
-    dtype.  ``kv_len``: valid length of k/v.  (The reference's
-    ``attn_remat`` only changes its backward pass: no argument here.)"""
+    dtype.  ``kv_len``: valid length of k/v.  ``attn_remat`` (the
+    reference's ``jax.checkpoint(step)``): under autograd each chunk pair
+    runs under ``torch.utils.checkpoint`` (non-reentrant), so the backward
+    recomputes the pair's scores, mask and exponentials instead of keeping
+    them; the result and every gradient are bit-equal to the flag off.
+    Without a gradient it changes nothing."""
     B, Sq, H, hd = q.shape
     _, Skv, K, _ = k.shape
     hd_v = v.shape[-1]
@@ -98,7 +126,11 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
     kf = kf.float().permute(0, 2, 1, 3)[:, :, None]
     vf = vf.permute(0, 2, 1, 3)[:, :, None]
-    valid_kv = Skv if kv_len is None else kv_len
+    pair = functools.partial(
+        _pair, scale=scale, cap=cap, causal=causal, window=window,
+        valid_kv=Skv if kv_len is None else kv_len)
+    remat = attn_remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     out = torch.zeros((B, K, G, nq * q_chunk, hd_v), dtype=q.dtype,
                       device=dev)
     ar_q = torch.arange(q_chunk, device=dev)
@@ -112,21 +144,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for j in js:
             kj = kf[:, :, :, j * kv_chunk:(j + 1) * kv_chunk]
             vj = vf[:, :, :, j * kv_chunk:(j + 1) * kv_chunk]
-            s = (qi @ kj.transpose(-1, -2)) * scale
-            s = softcap(s, cap)
             k_pos = (j * kv_chunk + ar_k)[None, :]
-            mask = k_pos < valid_kv
-            if causal:
-                mask = mask & (k_pos <= q_pos)
-            if window:
-                mask = mask & (k_pos > q_pos - window)
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p.to(vj.dtype).float() @ vj.float()
-            m = m_new
+            args = (qi, kj, vj, m, l, acc, q_pos, k_pos)
+            m, l, acc = (checkpoint(pair, *args, use_reentrant=False)
+                         if remat else pair(*args))
         out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = \
             (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, nq * q_chunk, H, hd_v)
@@ -244,7 +265,8 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
             o = blockwise_attention(q, k, v, causal=causal, window=window,
                                     scale=scale, cap=cfg.attn_softcap,
                                     q_chunk=cfg.q_chunk,
-                                    kv_chunk=cfg.kv_chunk)
+                                    kv_chunk=cfg.kv_chunk,
+                                    attn_remat=cfg.attn_remat)
         else:
             raise ValueError(f"attention_impl must be one of {IMPLS}, got "
                              f"{impl!r}")

@@ -89,7 +89,8 @@ def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         k, v = _expand_kv(p, cfg, c_kv, k_rope)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         o = blockwise_attention(qq, k, v, causal=cfg.causal, scale=scale,
-                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                attn_remat=cfg.attn_remat)
     elif mode == "decode":
         cc, ckr_c = cache["c"], cache["kr"]
         cc[:, cache_len] = c_kv[:, 0]

@@ -23,8 +23,14 @@ The model runs the stack as a Python loop over periods (the reference's
 train-mode forward under autograd runs each full period's body under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``):
 only the period's input is kept, and the body runs again in the backward
-pass, so a kernel it launches counts a second launch there.  Without a
-gradient ``remat`` changes nothing.  The reference's ``ShardCtx`` is not
+pass, so a kernel it launches counts a second launch there.  With
+``cfg.attn_remat`` too, the blockwise attention runs each chunk pair
+under a checkpoint of its own (``models/attention.py``), and the two
+levels nest, both non-reentrant: the period's recompute re-enters each
+pair's checkpoint, and the pair's backward recomputes its scores once
+more — the reference's ``jax.checkpoint(body)`` around
+``jax.checkpoint(step)``.  Without a gradient neither flag changes
+anything.  The reference's ``ShardCtx`` is not
 carried over: the port's trainer has one device (A19).
 """
 from __future__ import annotations

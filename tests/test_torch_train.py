@@ -8,7 +8,13 @@
   loss, the global norm and every gradient leaf against
   ``jax.value_and_grad(lm.loss_fn)``, then three AdamW steps against the
   reference's jitted ``train_step``.
-- ``remat`` on equals ``remat`` off, bit for bit.
+- ``remat`` and ``attn_remat`` on equal them off, bit for bit, for the
+  four models above, the reduced deepseek (MLA, the dense prefix) and
+  HuBERT (non-causal frames).
+- The other families (MoE, MLA, cross-attention, HuBERT's frames) are
+  trained against the reference in ``tests/test_torch_train_families.py``;
+  ``blockwise_attention``'s ``attn_remat`` alone in
+  ``tests/test_torch_attn_remat.py``.
 - The trainer (``launch/train.py`` with ``device="cpu"``): the reference's
   four integration tests (``tests/test_train_integration.py``), a forced
   straggler applied once, the A19 refusals and the CLI.
@@ -60,6 +66,9 @@ from repro_torch.models import convert
 from repro_torch.models import transformer as tt
 from repro_torch.optim import adamw_init
 from repro_torch.optim.tree import leaves
+from test_torch_families import FAMILIES
+from test_torch_families import _batch as _family_batch
+from test_torch_families import _jax_params as _family_params
 from test_torch_models import _jax_params as _dense_params
 from test_torch_recurrent import _jax_params as _recurrent_params
 
@@ -80,13 +89,17 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _params(arch):
-    """The reference's parameters at f32 (numpy-able) and the port's."""
+def _params(arch, n_layers=None):
+    """The reference's parameters at f32 (numpy-able) and the port's, of
+    the reduced config (``n_layers`` deep if given)."""
     make = (_recurrent_params if arch in ("rwkv6_3b", "recurrentgemma_2b")
-            else _dense_params)
-    jp = jax.tree.map(lambda a: a.astype(jnp.float32), make(arch))
-    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
-                                   tconfigs.get_reduced(arch), device="cpu")
+            else _family_params if arch in FAMILIES else _dense_params)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      make(arch, n_layers) if n_layers else make(arch))
+    tc = tconfigs.get_reduced(arch)
+    tp = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jp),
+        tc.with_(n_layers=n_layers) if n_layers else tc, device="cpu")
     return jp, tp
 
 
@@ -97,6 +110,27 @@ def _batches(arch, n, batch=2, seq=32):
 
 def _torch_batch(hb):
     return {k: torch.from_numpy(v) for k, v in hb.items()}
+
+
+def _train_batch(cfg, hb, seed=0):
+    """The pipeline's batch as the trainer shapes it for ``cfg``
+    (``launch/train.py``'s ``device_batch``), with seeded frames and image
+    embeddings (``test_torch_families._batch``, f32) for both packages:
+    HuBERT's frames take the tokens' place, the tokens mod vocab are its
+    labels and its mask is ones."""
+    hb = dict(hb)
+    B, S = hb["tokens"].shape
+    _, tb = _family_batch(cfg, seed, B, S, jnp.float32)
+    out = _torch_batch(hb)
+    if cfg.audio_frontend:
+        out["labels"] = out.pop("tokens") % cfg.vocab
+        out["frames"] = tb["frames"]
+        out["mask"] = torch.ones((B, S), dtype=torch.float32)
+    if cfg.n_img_tokens:
+        out["image_embeds"] = tb["image_embeds"]
+    if not cfg.causal:
+        out["labels"] = out["labels"] % cfg.vocab
+    return out
 
 
 def _rel(got, want):
@@ -155,21 +189,37 @@ def test_three_train_steps_match_the_reference(arch):
         assert _rel(g.numpy(), w) <= 1e-3
 
 
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "rwkv6_3b",
-                                  "recurrentgemma_2b"])
+# arch: the reduced config's depth for the check, None for its own (deepseek
+# at 3 layers: the dense prefix and two MoE periods)
+REMAT_ARCHS = {"qwen2_0_5b": None, "rwkv6_3b": None, "recurrentgemma_2b": None,
+               "gemma2_2b": None, "deepseek_v2_lite_16b": 3,
+               "hubert_xlarge": None}
+
+
+@pytest.mark.parametrize("arch", list(REMAT_ARCHS))
 def test_remat_changes_no_bit(arch):
-    """``remat`` runs each period under ``torch.utils.checkpoint``: the
-    recomputed forward is the same computation, so the loss and every
-    gradient are bit-equal to the run that keeps its activations."""
+    """``remat`` runs each period under ``torch.utils.checkpoint``, and
+    ``attn_remat`` each blockwise-attention chunk pair (a window and
+    softcap on gemma2, RecurrentGemma's local layers, deepseek's MLA,
+    HuBERT's non-causal frames), the two nested when both are on: the
+    recomputed forward is the same computation, so for each of the four
+    settings the loss and every gradient are bit-equal to the run that
+    keeps every activation."""
+    n_layers = REMAT_ARCHS[arch]
     tc = tconfigs.get_reduced(arch)
+    if n_layers:
+        tc = tc.with_(n_layers=n_layers)
     assert tc.n_full_periods >= 2
-    _, tp = _params(arch)
-    hb = _torch_batch(_batches(arch, 1)[0])
-    l0, g0 = tsteps.loss_and_grads(tp, tc.with_(remat=False), hb)
-    l1, g1 = tsteps.loss_and_grads(tp, tc.with_(remat=True), hb)
-    assert torch.equal(l0, l1)
-    for a, b in zip(leaves(g0), leaves(g1)):
-        assert torch.equal(a, b)
+    _, tp = _params(arch, n_layers)
+    hb = _train_batch(tc, _batches(arch, 1)[0])
+    l0, g0 = tsteps.loss_and_grads(
+        tp, tc.with_(remat=False, attn_remat=False), hb)
+    for remat, attn_remat in ((False, True), (True, False), (True, True)):
+        l1, g1 = tsteps.loss_and_grads(
+            tp, tc.with_(remat=remat, attn_remat=attn_remat), hb)
+        assert torch.equal(l0, l1), (remat, attn_remat)
+        for a, b in zip(leaves(g0), leaves(g1)):
+            assert torch.equal(a, b), (remat, attn_remat)
 
 
 def test_flash_attention_refuses_a_gradient():
