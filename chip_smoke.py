@@ -233,7 +233,7 @@ each printing a line:
    per-token body alone at the scoring and prefill shapes.  The ``build``
    line gives ``rglru_scan``'s dynamic shared memory a CTA beside
    ptxas's registers and spills.
-   ``python3 chip_smoke.py --scan`` runs phases 2 and 16 alone.
+   ``python3 chip_smoke.py --scan`` runs phases 2, 16 and 23 (a) alone.
 17. ``rwkv6`` — RWKV-6 3B at full width and depth (32 layers, d_model
    2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, 2,913,405,440
    parameters, random bf16 weights from ``--seed``): the scoring forward
@@ -286,8 +286,9 @@ each printing a line:
 23. ``train`` — the training path through the port's ``train()`` entry
    point (:func:`train_phase`): (a) the backward kernels
    ``rglru_scan_bwd`` (at (1, 8,192, 2,560) and (8, 512, 2,560)) and
-   ``rwkv6_scan_bwd`` (at (4, 4,096, 40, 64), (8, 512, 40, 64) and
-   S = 9) against their plain backwards on seeded inputs with decays
+   ``rwkv6_scan_bwd`` (at (4, 4,096, 40, 64), (8, 512, 40, 64), S = 9
+   and a narrow head, (2, 300, 40, 16), whose idle row groups still run)
+   against their plain backwards on seeded inputs with decays
    near 0 and near 1 and nonzero initial states — ``rglru_scan_bwd`` bit
    for bit, ``rwkv6_scan_bwd`` within 2x the f32 plain backward's own
    error against f64 — and, below the first shape, against autograd
@@ -4979,17 +4980,20 @@ TRAIN_EXPECT = {"qwen2_0_5b": (),
                 "rwkv6_3b": ("rwkv6_scan", "rwkv6_scan_bwd"),
                 "recurrentgemma_2b": ("rglru_scan", "rglru_scan_bwd")}
 # the backward kernels' checks: RecurrentGemma's scoring and serving
-# shapes, RWKV-6 3B's scoring and serving shapes and a decode-sized S < 16
+# shapes, RWKV-6 3B's scoring and serving shapes, a decode-sized S < 16
+# and a head of 16 (of rwkv6_scan_bwd's row groups of a cluster, only the
+# first holds live rows)
 RGLRU_BWD_SHAPES = ((1, RG_SEQ, RG_D_RNN), (SERVE_BATCH, SERVE_PROMPT,
                                             RG_D_RNN))
 RWKV_BWD_SHAPES = ((RWKV_BATCH, RWKV_SEQ, 40, 64),
-                   (SERVE_BATCH, SERVE_PROMPT, 40, 64), (2, 9, 40, 64))
+                   (SERVE_BATCH, SERVE_PROMPT, 40, 64), (2, 9, 40, 64),
+                   (2, 300, 40, 16))
 # rwkv6_scan_bwd's largest error over its six gradients against the f64
 # plain backward, in units of the f32 plain backward's own (both sum in
 # f32, in other orders)
 BWD_NOISE_RATIO = 2.0
 # (c): f32 copies at full width, this many layers, B x S tokens (S not a
-# multiple of the backward's 64-step chunk)
+# multiple of the backward's chunk, ops.BWD_CHUNK)
 GRAD_LAYERS = {"rwkv6_3b": 2, "recurrentgemma_2b": 3}
 GRAD_BATCH, GRAD_SEQ = 2, 300
 GRAD_NOISE_RATIO = 4.0
@@ -5185,8 +5189,7 @@ def scan_bwd_phase(torch, dev, seed, rglru_shapes, rwkv_shapes, timing):
         r["library_ms"] = None
         if name == "rwkv6_scan_bwd":
             B, S, H, _ = r["shape"]
-            r["scratch_bytes"] = 4 * B * H * ops.MAX_HEAD ** 2 * (
-                -(-S // ops.BWD_CHUNK) + ops.BWD_CHUNK)
+            r["scratch_bytes"] = ops.rwkv6_scan_bwd_scratch_bytes(B, S, H)
     return rec
 
 
@@ -6565,6 +6568,8 @@ def build_line(out=print):
     t0 = time.perf_counter()
     lib = _build.build()
     smem = _build.library().rglru_scan_smem_bytes()
+    bwd_smem = (_build.library().rwkv6_scan_bwd_smem_bytes(),
+                _build.library().rglru_scan_bwd_smem_bytes())
     log = (lib.parent / "build.log").read_text()
     cufilt = str(Path(_build.nvcc_path()).parent / "cu++filt")
     out(f"build: {time.perf_counter() - t0:.1f} s, {lib}; ptxas "
@@ -6572,7 +6577,8 @@ def build_line(out=print):
             f"{src} {n} {r} regs, spills {st} / {ld}"
             for src, n, r, st, ld in ptxas_report(log, cufilt))
         + f"; rglru_scan's ring and output stage: {smem} bytes of dynamic "
-        "shared memory a CTA")
+        f"shared memory a CTA; rwkv6_scan_bwd's ring, chunk states and dv "
+        f"tile {bwd_smem[0]}; rglru_scan_bwd's rings {bwd_smem[1]}")
 
 
 def heap_only(torch, seed):
@@ -6606,12 +6612,17 @@ def label_prop_only(torch, seed):
 
 
 def scan_only(torch, seed):
-    """``--scan``: phases 2 and 16 alone, for work on the scan kernels."""
+    """``--scan``: phases 2, 16 and 23 (a) alone, for work on the scan
+    kernels and their backwards."""
     build_line()
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    ls = linear_scan_phase(torch, torch.device("cuda"), seed, RWKV_SHAPES,
-                           RGLRU_SHAPES, True)
+    ls = linear_scan_phase(torch, dev, seed, RWKV_SHAPES, RGLRU_SHAPES, True)
     print(scan_line(ls, time.perf_counter() - t0, True))
+    t0 = time.perf_counter()
+    bwd = scan_bwd_phase(torch, dev, seed, RGLRU_BWD_SHAPES,
+                         RWKV_BWD_SHAPES, True)
+    print(bwd_line(bwd, time.perf_counter() - t0))
 
 
 def train_only(torch, seed):
@@ -6723,7 +6734,8 @@ def main(argv=None) -> int:
                          "not the checks")
     ap.add_argument("--scan", action="store_true",
                     help="only the build and the linear_scan kernel checks "
-                         "and timings (phases 2 and 16)")
+                         "and timings, the backwards' too (phases 2, 16 "
+                         "and 23 (a))")
     ap.add_argument("--heap", action="store_true",
                     help="only the build and the heap kernel checks and "
                          "timings (phases 2 and 3)")

@@ -95,12 +95,14 @@ SIGNATURES = {
     "rglru_scan_launch": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_P],
     "rglru_scan_smem_bytes": [],
     # r, k, v, w, u, state0, dy, dS_T, dr, dk, dv, dw, du (B, H, hd),
-    # dstate0, the saved states, the chunk's states, B, S, H, hd, the
+    # dstate0, the saved states and their f32 count, B, S, H, hd, the
     # (batch, seq, head) strides of r, k and v, dtype, stream
-    "rwkv6_scan_bwd_launch": [_P] * 16 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "rwkv6_scan_bwd_launch": [_P] * 15 + [_L] + [_I] * 4 + [_L] * 9
+    + [_I, _P],
     "rwkv6_scan_bwd_smem_bytes": [],
     # a, h0, hs, dhs, dh_T, da, db, dh0, B, S, R, stream
     "rglru_scan_bwd_launch": [_P] * 8 + [_I] * 3 + [_P],
+    "rglru_scan_bwd_smem_bytes": [],
 }
 
 _lock = threading.Lock()

@@ -150,7 +150,18 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     return hs, h
 
 
-BWD_CHUNK = 64   # rwkv6_scan_bwd: steps between the saved states
+# rwkv6_scan_bwd.cu's kT: steps between the saved states, a chunk whose
+# recomputed states stay on chip (tests/test_torch_scan_grads.py holds the
+# two equal)
+BWD_CHUNK = 16
+
+
+def rwkv6_scan_bwd_scratch_bytes(B: int, S: int, H: int) -> int:
+    """Bytes of device scratch :func:`rwkv6_scan_bwd` allocates at (B, S,
+    H): the f32 ``MAX_HEAD`` x ``MAX_HEAD`` state of each (batch, head)
+    saved before every ``BWD_CHUNK``-step chunk but the last (0 when S
+    fits one chunk)."""
+    return 4 * B * H * MAX_HEAD ** 2 * max(-(-S // BWD_CHUNK) - 1, 0)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -385,15 +396,17 @@ def _bwd_input(t: torch.Tensor, name: str, shape, dev) -> torch.Tensor:
 
 def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dsT=None):
     """The gradients of :func:`rwkv6_scan` (arguments and results as
-    :func:`rwkv6_scan_bwd_plain`).  On CUDA tensors: one launch of
-    ``csrc/rwkv6_scan_bwd.cu`` on the current stream, one CTA a (batch,
-    head) sweeping the sequence twice — forward, saving the state every
-    ``BWD_CHUNK`` steps, then backward a chunk at a time from its saved
-    state — with its scratch allocated here: 16 KB a (batch, head) a
-    saved state, ceil(S / BWD_CHUNK) of them, plus BWD_CHUNK states a
-    (batch, head) for the chunk being swept.  r, k and v of one dtype
-    (f32 or bf16) read through their strides like the forward's; the
-    rest cast to f32."""
+    :func:`rwkv6_scan_bwd_plain`).  On CUDA tensors: one launch of the
+    cluster kernel ``csrc/rwkv6_scan_bwd.cu`` on the current stream, a
+    cluster of CTAs a (batch, head), each CTA a group of the state's rows,
+    sweeping the sequence twice — forward, saving the state before every
+    ``BWD_CHUNK``-step chunk, then backward a chunk at a time, its states
+    recomputed from the saved one on chip (shared memory and registers) —
+    with the saved states' scratch allocated here
+    (:func:`rwkv6_scan_bwd_scratch_bytes`).
+    r, k and v of one dtype (f32 or bf16) read through their strides like
+    the forward's; the rest cast to f32.  A launch the card refuses (a
+    cluster it cannot place) raises."""
     if r.device.type == "cpu":
         return rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dsT)
     dev = _on_card(r)
@@ -421,16 +434,13 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dsT=None):
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
     if B * H == 0:
         return (*grads, du.sum(0), ds0)
-    n_saved = -(-S // BWD_CHUNK)
-    saved = torch.empty((B * H, max(n_saved, 1), MAX_HEAD * MAX_HEAD),
+    saved = torch.empty(rwkv6_scan_bwd_scratch_bytes(B, S, H) // 4,
                         dtype=torch.float32, device=dev)
-    states = torch.empty((B * H, BWD_CHUNK, MAX_HEAD * MAX_HEAD),
-                         dtype=torch.float32, device=dev)
     rc = _build.library().rwkv6_scan_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), s0.data_ptr(), dy.data_ptr(), dsT.data_ptr(),
         *(g.data_ptr() for g in grads), du.data_ptr(), ds0.data_ptr(),
-        saved.data_ptr(), states.data_ptr(), B, S, H, hd,
+        saved.data_ptr(), saved.numel(), B, S, H, hd,
         *_strides(r, "r", 3), *_strides(k, "k", 3), *_strides(v, "v", 3),
         _DTYPES[r.dtype], _build.stream(dev))
     _build.check(rc, "rwkv6_scan_bwd")
@@ -441,9 +451,11 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dsT=None):
 def rglru_scan_bwd(a, h0, hs, dhs, dhT=None):
     """The gradients of :func:`rglru_scan` (arguments and results as
     :func:`rglru_scan_bwd_plain`).  On CUDA tensors: one launch of
-    ``csrc/rglru_scan_bwd.cu`` on the current stream, one lane a channel
-    sweeping t downward, bit-equal to the plain version; the inputs cast
-    to contiguous f32."""
+    ``csrc/rglru_scan_bwd.cu`` on the current stream — the forward's ring
+    run in descending t: a producer warp streams a, dhs and h_{t-1} into
+    shared-memory stages on mbarriers, one lane a channel runs the chain,
+    a storer warp writes da and db back — bit-equal to the plain version;
+    the inputs cast to contiguous f32."""
     if a.device.type == "cpu":
         return rglru_scan_bwd_plain(a, h0, hs, dhs, dhT)
     dev = _on_card(a)
@@ -476,6 +488,7 @@ rglru_scan_bwd.launches = 0
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_body",
            "rglru_scan", "rglru_scan_plain", "rglru_rows_aligned",
            "rwkv6_scan_bwd", "rwkv6_scan_bwd_plain", "rglru_scan_bwd",
-           "rglru_scan_bwd_plain", "BWD_CHUNK",
+           "rglru_scan_bwd_plain", "rwkv6_scan_bwd_scratch_bytes",
+           "BWD_CHUNK",
            "MAX_HEAD", "SHORT_SEQ", "RGLRU_CHANNELS", "RGLRU_STEPS",
            "RGLRU_STAGES", "RGLRU_ALIGN_BYTES"]
