@@ -74,7 +74,7 @@ each printing a line:
    6 alone.
 7. ``graph`` — ``batched_read_optimized(DeviceGraph(...))`` (bench_graph's
    ``PC-K4`` row): 1,000,000 vertices, one random tree with half its
-   999,999 edges prepopulated, 8 client threads of 90% ``connected`` and
+   999,999 edges written from numpy (:func:`tree_graph`), 8 client threads of 90% ``connected`` and
    5% each insert/delete of a tree edge; the kernel launch count, full
    rebuilds and fast merges of that run, per-edge-class conservation,
    final labels against the union-find oracle, and a seeded replay of
@@ -294,31 +294,61 @@ each printing a line:
    error against f64 — and, below the first shape, against autograd
    through a forward; each one's ms, plain ms and bound by bytes; (b)
    Qwen2-0.5B, RWKV-6 3B and RecurrentGemma-2B at full width and depth,
-   20 steps each of the pipeline's batches with remat on, bf16 weights
+   20 steps each (10 in the full run: ``RUN_TRAIN_STEPS``) of the
+   pipeline's batches with remat on, bf16 weights
    and lr 1e-3 (``TRAIN_RUNS``): loss first and last (it must fall), step
    ms, tokens/s, peak memory, the launches of the scans and their
    backwards (each > 0 where the model has such layers) and one profiled
-   step; (c) an f32 copy of each recurrent model at full width, reduced
+   step (not in the full run); (c) an f32 copy of each recurrent model at full width, reduced
    depth: the loss and every gradient leaf through the kernels against
    the plain scans, within 4x the two plain paths' distance; (d)
    Qwen2-0.5B crashed and resumed from its checkpoint, its final loss
    within 2e-3 of an uninterrupted run's; (e) ``flash_attention``
-   refuses a gradient; (f) the other families at full width, 10 steps of
-   2 x 2,048 each (``FAMILY_TRAIN_RUNS``): HuBERT-XLarge at all 48 layers
+   refuses a gradient; (f) the other families at full width, 10 steps (8
+   in the full run) of 2 x 2,048 each (``FAMILY_TRAIN_RUNS``): HuBERT-XLarge at all 48 layers
    through ``train()``, deepseek-V2-Lite (the dense prefix and 7 MoE
    layers) and Llama-3.2-Vision (2 periods, 2 cross layers) through
    ``train()``'s own step, pipeline and ``device_batch`` (:func:`cut_train`:
    ``train()`` has no depth argument), each loss falling, with the
    parameter count and the 12 bytes a parameter reckoned; (g)
    ``attn_remat`` on the card: Qwen2-0.5B one train step of batch 1 at
-   S = 4,096, 8,192 and 16,384 with the flag on and off (and, under
-   ``--train``, at 32,768 on), peak memory and step ms
+   S = 4,096, 8,192 and 16,384 with the flag on and off (the full run:
+   4,096 alone; ``--train``: at 32,768 on too), peak memory and step ms
    (:func:`remat_sweep`); the loss and every
    gradient with the flag on bit-equal to the flag off at 2 x 2,048; on
    an f32 deepseek (the prefix and 2 MoE layers) the flag on within 2x the
    spread of two runs with the flag off (:func:`remat_checks`).  Every
    model trains with its config's ``attn_remat``.  ``python3 chip_smoke.py
    --train`` runs phases 2 and 23 alone.
+
+24. ``sharded`` — the mesh layer (``launch/sharding.py``, the mesh paths
+   of ``launch/steps.py``) on one-rank meshes: a real NCCL group of one
+   rank (NCCL refuses two ranks on one card), every parameter, moment,
+   batch and cache a DTensor laid out by the reference's specs, each
+   kernel launched on its rank's local shards (``kernels/_sharded.py``).
+   (a) RWKV-6 3B and RecurrentGemma-2B at full width and depth, 3 train
+   steps of 2 x 2,048 each through ``make_train_step(cfg, mesh)`` on a
+   1 x 1 mesh, against ``make_train_step(cfg)`` on the same weights and
+   batches: loss, gnorm and every parameter leaf after every step; RWKV-6
+   once more on a 1 x 1 x 1 pod mesh with ``grad_compress``, against the
+   unsharded step followed by the int8 round trip; (b) Qwen2-0.5B with
+   ``attention_impl="pallas"`` and ``pure_dp`` off (TP on the model
+   axis): one scoring forward (``model_apply``, mode train, no grad:
+   where ``flash_attention`` runs), a prefill of 8 x 512 and 8 decode
+   steps through the mesh steps against the unsharded steps — logits,
+   tokens and every cache tensor; (c) one dry-run cell
+   (``qwen2_0_5b``, ``decode_32k``, 16 x 16 fake ranks) in a subprocess
+   on the host, beside the other parts;
+   (d) the dry run's step-peak tracker on real tensors: the first sharded
+   train step of Qwen2-0.5B and of RWKV-6 3B (2 x 2,048) under
+   ``dryrun.Recorder``, its peak of the step's temporaries within 2% of
+   ``max_memory_allocated`` above the arguments.
+   At one rank every DTensor op runs the local op of the unsharded path,
+   so every comparison is bit for bit.  Each run's launches of the scans,
+   their backwards and ``flash_attention`` equal its unsharded twin's,
+   and are not zero; step ms sharded and unsharded (DTensor's host cost
+   at D = 1).  ``python3 chip_smoke.py --sharded`` runs phases 2 and 24
+   alone.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -1875,25 +1905,19 @@ def graph_replay(torch, g, tree, n_replay, seed):
 
 
 def graph_phase(torch, dev, seed, n, threads, ops, n_replay, counters):
-    from repro_torch.core.device_graph import DeviceGraph
     from repro_torch.core.read_opt import batched_read_optimized
     from repro_torch.kernels.label_prop.ref import components_reference
 
-    rng = np.random.default_rng([seed, 5])
-    tu, tv = random_tree(rng, n)
-    tree = list(zip(tu.tolist(), tv.tolist()))
-    g = DeviceGraph(n, edge_capacity=(n - 1) + 2 * C_MAX, c_max=C_MAX,
-                    n_shards=4, device=dev)
-    half = np.flatnonzero(np.random.default_rng([seed, 6]).random(n - 1)
-                          < 0.5)
-    batch = [tree[i] for i in half]
     t0 = time.perf_counter()
-    check(all(g.insert_batch(batch)), "graph: a prepopulated edge refused")
+    g, tree = tree_graph(torch, dev, seed, n)  # labels current before
     if dev.type == "cuda":
         torch.cuda.synchronize()
     prepop_s = time.perf_counter() - t0
-    initial = {_norm(e) for e in batch}
-    g.connected_batch([(0, 1)])               # labels current before
+    initial = g.edges()
+    half = np.flatnonzero(np.random.default_rng([seed, 6]).random(n - 1)
+                          < 0.5)
+    check(initial == {_norm(tree[i]) for i in half},
+          "graph: the loaded edges are not the tree's half")
     rebuilds0, fast0 = g.full_rebuilds(), g.fast_merges()
     elim0 = g.eliminated_ops
     engine = batched_read_optimized(g)
@@ -5020,6 +5044,13 @@ DEVICE_BYTES = 80e9            # the H100's memory
 # a point, period remat on; the long point flag on only, and under --train
 # only (its step takes minutes: PERF.md §6, PR 27)
 REMAT_SEQS = (4096, 8192, 16384)
+# the full run's cut of this phase (``--train`` runs all of it): 10 steps
+# a main model, 8 a family, the sweep's first point and no profiled step,
+# so that the full run ends well inside its 1,200 s on a slow host
+# (PERF.md §6)
+RUN_TRAIN_STEPS = 10
+RUN_FAMILY_TRAIN_STEPS = 8
+RUN_REMAT_SEQS = REMAT_SEQS[:1]
 REMAT_LONG = 32768
 REMAT_BIT = (2, 2048)          # batch, seq of the bit-equality check
 # deepseek as an f32 copy, the prefix and 2 MoE layers: its MoE backward
@@ -5242,7 +5273,8 @@ def cut_train(torch, dev, cfg, *, steps, batch, seq, seed):
                 tokens_per_s=batch * seq / step_s)
 
 
-def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
+def train_runs(torch, dev, seed, counters, runs, steps, reduced, out,
+               profile=True):
     """(b), (f) For each model of ``runs`` (full width, and full depth
     unless ``reduced`` or the run names its layers, remat and attn_remat
     as the config sets them, bf16 parameters, lr TRAIN_LR) ``train()``,
@@ -5251,8 +5283,9 @@ def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
     to the last, each of the model's scan kernels (forward and backward)
     launched and ``flash_attention`` not (training runs ``xla_chunked``,
     as the reference's trainer); then one more step of fresh weights under
-    the profiler.  The parameter count and TRAIN_BYTES_PER_PARAM bytes
-    each are reckoned against the card's memory."""
+    the profiler (unless ``profile`` is false).  The parameter count and
+    TRAIN_BYTES_PER_PARAM bytes each are reckoned against the card's
+    memory."""
     from repro_torch.launch.train import train
     from repro_torch.models import transformer
 
@@ -5289,7 +5322,7 @@ def train_runs(torch, dev, seed, counters, runs, steps, reduced, out):
         m["bytes_reckoned"] = TRAIN_BYTES_PER_PARAM * m["params"]
         m["profile"] = (_profile_step(torch, dev, cfg, params, batch, seq,
                                       seed)
-                        if dev.type == "cuda" else None)
+                        if dev.type == "cuda" and profile else None)
         del params
         res["models"][arch] = m
         pr = m["profile"]
@@ -5586,7 +5619,7 @@ def train_phase(torch, dev, seed, counters, *, runs=TRAIN_RUNS,
                 family_steps=FAMILY_TRAIN_STEPS, remat_seqs=REMAT_SEQS,
                 remat_long=REMAT_LONG, remat_bit=REMAT_BIT,
                 spread_layers=REMAT_SPREAD_LAYERS, reduced=False,
-                timing=True, out=print):
+                profile=True, timing=True, out=print):
     """Phase 23: (a) :func:`scan_bwd_phase`, (b) and (f)
     :func:`train_runs` (the launches of both counted as the ``train``
     path's), (g) :func:`remat_sweep` and :func:`remat_checks`, (c)
@@ -5597,9 +5630,9 @@ def train_phase(torch, dev, seed, counters, *, runs=TRAIN_RUNS,
                                  rwkv_shapes, timing and dev.type == "cuda")}
     out(bwd_line(rec["bwd"], time.perf_counter() - t0))
     rec["train"] = train_runs(torch, dev, seed, counters, runs, steps,
-                              reduced, out)
+                              reduced, out, profile=profile)
     fam = train_runs(torch, dev, seed, counters, family_runs, family_steps,
-                     reduced, out)
+                     reduced, out, profile=profile)
     rec["train"]["models"].update(fam["models"])
     for k, n in fam["launches"].items():
         rec["train"]["launches"][k] += n
@@ -6179,11 +6212,404 @@ def placement_phase(torch, dev, seed, counters, init, pq_cap, graph, *,
     return res
 
 
+# phase 24: the mesh layer on one-rank meshes
+SHARDED_TRAIN = (("rwkv6_3b", 2, 2048), ("recurrentgemma_2b", 2, 2048))
+SHARDED_COMPRESS = "rwkv6_3b"   # the pod mesh's grad_compress run
+SHARDED_STEPS = 3
+SHARDED_SERVE = (8, 512, 8)     # Qwen2-0.5B: batch, prompt, decode steps
+SHARDED_DRYRUN = ("qwen2_0_5b", "decode_32k")
+# (d): the dry run's step-peak tracker against the card's allocator, one
+# sharded train step each (the loss chunk's logits; the scan's scratch)
+SHARDED_TRACKER = (("qwen2_0_5b", 2, 2048), ("rwkv6_3b", 2, 2048))
+TRACKER_RTOL = 0.02
+SHARDED_KERNELS = ("flash_attention", "rwkv6_scan", "rwkv6_scan_bwd",
+                   "rglru_scan", "rglru_scan_bwd")
+
+
+def one_rank_mesh(torch, dev, pods=False):
+    """A data x model (or pod x data x model) mesh of one rank: a real
+    group (NCCL on the card, loopback bootstrap; gloo on the CPU)."""
+    import os
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_mesh_for_world
+
+    if dev.type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh = make_mesh_for_world(1, device=dev)
+    if pods:
+        return DeviceMesh(dev.type, torch.arange(1).reshape(1, 1, 1),
+                          mesh_dim_names=("pod", "data", "model"))
+    return mesh
+
+
+def _snapshot(torch, params, host):
+    """A copy of every leaf (its local shard), on the device or (``host``:
+    where the step's own transients leave no room beside three copies)
+    on the host."""
+    from repro_torch.optim.tree import leaves, local
+
+    return [local(t).detach().to("cpu", copy=True) if host
+            else local(t).detach().clone() for t in leaves(params)]
+
+
+def _leaves_equal(torch, params, snap):
+    """(how many leaves differ from ``snap``, the largest |difference|)."""
+    from repro_torch.optim.tree import leaves, local
+
+    bad, worst = 0, 0.0
+    for t, s in zip(leaves(params), snap):
+        g = local(t).detach()
+        s = s.to(g.device)
+        if not torch.equal(g, s):
+            bad += 1
+            worst = max(worst, float((g.float() - s.float()).abs().max()))
+    return bad, worst
+
+
+def _train_twin(torch, dev, seed, counters, cfg, batch, seq, steps, mesh,
+                compress, snaps=None):
+    """``steps`` train steps of fresh weights on the pipeline's batches:
+    unsharded (``mesh=None``; ``compress`` adds the int8 round trip by
+    hand) or through ``make_train_step(cfg, mesh)``.  Returns (the
+    record, a device copy of the parameters after each step, or the
+    comparison with ``snaps``)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.compress import (compress_grads_int8,
+                                            decompress_grads_int8)
+
+    pipe = make_pipeline(cfg.vocab, seq, batch, seed=seed)
+    params = transformer.model_init(seed, cfg, device=dev)
+    if mesh is not None:
+        params = sh.distribute_tree(params, sh.param_specs(cfg, mesh,
+                                                           "train"), mesh)
+    opt = adamw_init(params)
+    if mesh is not None:
+        step = st.make_train_step(cfg, mesh, lr=TRAIN_LR,
+                                  grad_compress=compress)
+    elif compress:
+        def step(p, o, b):
+            loss, g = st.loss_and_grads(p, cfg, b)
+            q, s, _ = compress_grads_int8(g)
+            p, o, gn = adamw_update(p, decompress_grads_int8(q, s), o,
+                                    lr=TRAIN_LR)
+            return p, o, {"loss": loss, "gnorm": gn}
+    else:
+        step = st.make_train_step(cfg, lr=TRAIN_LR)
+    for f in counters.values():
+        f.launches = 0
+    rec = {"metrics": [], "ms": [], "diff": []}
+    host = []
+    for i in range(steps):
+        b = device_batch(cfg, pipe.global_batch(i), i, seed, dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        rec["metrics"].append(torch.stack([m["loss"].float(),
+                                           m["gnorm"]]).tolist())
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if snaps is None:
+            # the int8 round trip holds two more f32 copies of the
+            # gradient: its twin's snapshots go to the host
+            host.append(_snapshot(torch, params, host=compress))
+        else:
+            rec["diff"].append(_leaves_equal(torch, params, snaps[i]))
+    _sync(torch, dev)
+    rec["launches"] = {k: f.launches for k, f in counters.items()}
+    rec["leaves"] = len(host[0]) if host else len(snaps[0])
+    del params, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, host
+
+
+def _twins_line(name, u, d):
+    bad = sum(b for b, _ in d["diff"])
+    worst = max(w for _, w in d["diff"])
+    return (f"{name}: loss/gnorm a step {d['metrics']} (unsharded "
+            f"{u['metrics']}), {d['leaves']} leaves a step, {bad} differing"
+            f" (worst {worst}); step ms {[round(x, 3) for x in d['ms']]} "
+            f"sharded vs {[round(x, 3) for x in u['ms']]} unsharded; "
+            f"launches {_nonzero(d['launches']) or 'none'} (unsharded "
+            f"{_nonzero(u['launches']) or 'none'})")
+
+
+def _same_launches(dev, name, u, d, expect):
+    """Each kernel launched as often as in the unsharded twin; on the
+    card, each kernel of ``expect`` at least once."""
+    for k in SHARDED_KERNELS:
+        check(d["launches"].get(k, 0) == u["launches"].get(k, 0),
+              f"sharded {name}: {k} launched {d['launches'].get(k, 0)} "
+              f"times, its unsharded twin {u['launches'].get(k, 0)}")
+    for k in expect if dev.type == "cuda" else ():
+        check(d["launches"][k] > 0, f"sharded {name}: kernel {k} was never "
+                                    f"launched")
+
+
+def sharded_train(torch, dev, seed, counters, runs, steps, reduced, out):
+    """Part (a).  Returns the records and the launches of the sharded
+    runs."""
+    res = {"launches": dict.fromkeys(counters, 0), "models": {}}
+    mesh = one_rank_mesh(torch, dev)
+    pod = one_rank_mesh(torch, dev, pods=True)
+    todo = [(arch, b, s, mesh, False) for arch, b, s in runs]
+    if any(arch == SHARDED_COMPRESS for arch, _, _ in runs):
+        b, s = next((b, s) for a, b, s in runs if a == SHARDED_COMPRESS)
+        todo.append((SHARDED_COMPRESS, b, s, pod, True))
+    for arch, batch, seq, m_, compress in todo:
+        t0 = time.perf_counter()
+        cfg = _model_cfg(arch, reduced)
+        u, snaps = _train_twin(torch, dev, seed, counters, cfg, batch, seq,
+                               steps, None, compress)
+        d, _ = _train_twin(torch, dev, seed, counters, cfg, batch, seq,
+                           steps, m_, compress, snaps)
+        del snaps
+        name = f"{arch}{' pod grad_compress' if compress else ''}"
+        check(d["metrics"] == u["metrics"], f"sharded {name}: loss/gnorm "
+              f"{d['metrics']} vs unsharded {u['metrics']}")
+        check(all(b == 0 for b, _ in d["diff"]), f"sharded {name}: "
+              f"parameters differ from the unsharded run's: {d['diff']}")
+        _same_launches(dev, name, u, d, TRAIN_EXPECT.get(arch, ()))
+        for k, n in d["launches"].items():
+            res["launches"][k] += n
+        key = arch + (" pod" if compress else "")
+        res["models"][key] = {"unsharded": u, "sharded": d,
+                              "mesh": str(tuple(m_.mesh_dim_names)),
+                              "seconds": time.perf_counter() - t0}
+        out(f"sharded train: {_twins_line(name, u, d)}; mesh "
+            f"{tuple(m_.mesh_dim_names)} of one rank, {batch} x {seq}, "
+            f"{cfg.n_layers} layers; bit-equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+def sharded_tracker(torch, dev, seed, runs, reduced, out):
+    """Part (d): ``launch/dryrun.py``'s ``Recorder`` on real tensors.  The
+    first train step of fresh weights through ``make_train_step(cfg,
+    mesh)`` on the one-rank mesh runs under it; its count of the step's
+    temporaries at their peak (the bytes of the local tensors the step
+    allocates, the arguments' storages excluded, sharding propagation's
+    stand-ins skipped) is held to ``max_memory_allocated`` above the
+    bytes allocated before the step.  Returns {arch: (tracked,
+    allocator)}."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+
+    mesh = one_rank_mesh(torch, dev)
+    res = {}
+    for arch, batch, seq in runs:
+        t0 = time.perf_counter()
+        cfg = _model_cfg(arch, reduced)
+        params = sh.distribute_tree(transformer.model_init(seed, cfg,
+                                                           device=dev),
+                                    sh.param_specs(cfg, mesh, "train"), mesh)
+        opt = adamw_init(params)
+        step = st.make_train_step(cfg, mesh, lr=TRAIN_LR)
+        b = device_batch(cfg, make_pipeline(cfg.vocab, seq, batch,
+                                            seed=seed).global_batch(0), 0,
+                         seed, dev)
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        rec = dryrun.Recorder((params, opt, b))
+        with rec:
+            params, opt, m = step(params, opt, b)
+            _sync(torch, dev)
+        alloc = (torch.cuda.max_memory_allocated(dev) - base
+                 if dev.type == "cuda" else rec.peak)
+        res[arch] = (rec.peak, alloc)
+        check(abs(rec.peak - alloc) <= TRACKER_RTOL * alloc,
+              f"sharded tracker {arch}: tracked {rec.peak} bytes, the "
+              f"allocator {alloc}")
+        out(f"sharded tracker: {arch} ({cfg.n_layers} layers, {batch} x "
+            f"{seq}), the first sharded train step on the one-rank mesh: "
+            f"temporaries' peak tracked {rec.peak} bytes, "
+            f"max_memory_allocated above the arguments {alloc} (tracked / "
+            f"allocator {rec.peak / max(alloc, 1):.4f}, limit 1 +- "
+            f"{TRACKER_RTOL}); {rec.flops:.4e} FLOP; loss "
+            f"{float(m['loss']):.6f} ({time.perf_counter() - t0:.1f} s)")
+        del params, opt, b, m, rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def sharded_serve(torch, dev, seed, counters, reduced, batch, prompt, new,
+                  out):
+    """Part (b): Qwen2-0.5B, TP layout, ``flash_attention`` in the
+    scoring forward, the prefill and decode steps on the mesh."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer
+    from repro_torch.optim.tree import leaves
+
+    mesh = one_rank_mesh(torch, dev)
+    cfg = _model_cfg(MODEL_ARCH, reduced).with_(
+        attention_impl="pallas", pure_dp=False, remat=False,
+        decode_cache_len=prompt + new)
+    rng = np.random.default_rng([seed, 24])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                            .astype(np.int32)).to(dev)
+    shd = sh.shard_ctx(cfg, mesh)
+    runs = {}
+    for label in ("unsharded", "sharded"):
+        params = transformer.model_init(seed, cfg, device=dev)
+        cache = transformer.init_cache(cfg, batch, prompt + new, device=dev)
+        m_ = None
+        if label == "sharded":
+            m_ = mesh
+            params = sh.distribute_tree(params, sh.param_specs(
+                cfg, mesh, "serve"), mesh)
+            cache = sh.distribute_tree(cache, sh.cache_specs(
+                cfg, mesh, sh.cache_shapes(cfg, batch, prompt + new)), mesh)
+        r = {"ms": {}}
+        for f in counters.values():
+            f.launches = 0
+        with torch.no_grad():
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, _ = transformer.model_apply(
+                params, cfg, {"tokens": toks},
+                shd=shd if m_ is not None else None)
+            _sync(torch, dev)
+            r["ms"]["forward"] = (time.perf_counter() - t0) * 1e3
+            r["forward"] = sh.gather_tree(logits).cpu()
+            del logits
+            pre = st.make_prefill_step(cfg, m_)
+            dec = st.make_decode_step(cfg, m_)
+            t0 = time.perf_counter()
+            last, cache = pre(params, {"tokens": toks}, cache)
+            _sync(torch, dev)
+            r["ms"]["prefill"] = (time.perf_counter() - t0) * 1e3
+            r["prefill"] = sh.gather_tree(last).cpu()
+            nxt = torch.argmax(r["prefill"], -1).to(torch.int32).to(dev)
+            toks_out, ms = [], []
+            for i in range(new):
+                t0 = time.perf_counter()
+                nxt, cache = dec(params, cache, prompt + i,
+                                 {"tokens": nxt[:, None]})
+                nxt = sh.gather_tree(nxt)
+                _sync(torch, dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                toks_out.append(nxt.cpu())
+            r["ms"]["decode"] = float(np.median(ms))
+            r["tokens"] = torch.stack(toks_out, 1)
+            r["cache"] = [t.cpu() for t in leaves(sh.gather_tree(cache))]
+        r["launches"] = {k: f.launches for k, f in counters.items()}
+        runs[label] = r
+        del params, cache
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    u, d = runs["unsharded"], runs["sharded"]
+    for what in ("forward", "prefill", "tokens"):
+        check(torch.equal(u[what], d[what]), f"sharded serve: the {what} "
+              f"differs from the unsharded steps'")
+    check(all(torch.equal(a, b) for a, b in zip(u["cache"], d["cache"])),
+          "sharded serve: a cache tensor differs from the unsharded one")
+    _same_launches(dev, "serve", u, d, ("flash_attention",))
+    out(f"sharded serve: {MODEL_ARCH} (TP layout, attention_impl pallas): "
+        f"scoring forward {batch} x {prompt}, prefill, {new} decode steps "
+        f"on a mesh of one rank == unsharded bit for bit (logits, tokens, "
+        f"{len(d['cache'])} cache tensors); ms sharded vs unsharded: "
+        + ", ".join(f"{k} {d['ms'][k]:.3f} vs {u['ms'][k]:.3f}"
+                    for k in ("forward", "prefill", "decode"))
+        + f"; launches {_nonzero(d['launches']) or 'none'} (unsharded "
+        f"{_nonzero(u['launches']) or 'none'})")
+    return {"ms": {"sharded": d["ms"], "unsharded": u["ms"]},
+            "launches": d["launches"]}
+
+
+@contextlib.contextmanager
+def sharded_dryrun(dev, cell=SHARDED_DRYRUN, out=print):
+    """Part (c): one dry-run cell on 256 fake ranks, in a subprocess (the
+    fake group stays out of this process) that runs on the host beside
+    parts (a) and (b).  Yields a function that waits for it, checks its
+    record, prints its line and returns the record; the subprocess is
+    stopped when the block is left."""
+    import os
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--out", tmp, "--device", dev.type],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+    def result():
+        so, se = proc.communicate(timeout=max(1.0, 300 - (
+            time.perf_counter() - t0)))
+        check(proc.returncode == 0, f"dry run {cell}: exit "
+              f"{proc.returncode}\n{so[-1500:]}\n{se[-1500:]}")
+        with open(os.path.join(tmp, f"{cell[0]}__{cell[1]}__16x16.json")) \
+                as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok" and rec["n_devices"] == 256,
+              f"dry run {cell}: {rec.get('status')}")
+        m, c = rec["memory"], rec["collectives"]
+        kinds = ", ".join(f"{k} {v['count']}"
+                          for k, v in c["by_kind"].items())
+        out(f"sharded dry run: {cell[0]} {cell[1]} on 16 x 16 fake ranks "
+            f"(device {dev.type}): ok; args {m['argument_size_in_bytes']} "
+            f"bytes a device, {rec['flops']:.4e} FLOP a device, "
+            f"{c['count']} collectives ({kinds}), traffic "
+            f"{c['traffic_bytes_per_device']:.4e} bytes a device (the "
+            f"cell {rec['run_s']} s; beside parts (a) and (b), waited for "
+            f"{time.perf_counter() - t0:.1f} s after its start)")
+        return rec
+
+    try:
+        yield result
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_phase(torch, dev, seed, counters, *, runs=SHARDED_TRAIN,
+                  steps=SHARDED_STEPS, serve=SHARDED_SERVE,
+                  tracker=SHARDED_TRACKER, dryrun=True, reduced=False,
+                  out=print):
+    """Phase 24 (the module docstring); the launches of parts (a) and (b)
+    are the ``sharded`` path's."""
+    t0 = time.perf_counter()
+    with (sharded_dryrun(dev, out=out) if dryrun
+          else contextlib.nullcontext()) as dry:
+        tr = sharded_train(torch, dev, seed, counters, runs, steps, reduced,
+                           out)
+        tk = sharded_tracker(torch, dev, seed, tracker, reduced, out)
+        sv = sharded_serve(torch, dev, seed, counters, reduced, *serve,
+                           out=out)
+        rec = {"train": tr["models"], "serve": sv, "tracker": tk,
+               "launches": {k: tr["launches"].get(k, 0)
+                            + sv["launches"].get(k, 0) for k in counters}}
+        if dry:
+            rec["dryrun"] = dry()
+    rec["seconds"] = time.perf_counter() - t0
+    out(f"sharded: {rec['seconds']:.1f} s, launches "
+        f"{_nonzero(rec['launches'])}")
+    return rec
+
+
 def tree_graph(torch, dev, seed, n):
     """The graph phase's half-populated 10⁶-vertex tree as a stacked
     ``DeviceGraph``, its edge buffer written from numpy and its labels
-    rebuilt once (``--placement`` alone: the graph phase's 40 s of
-    prepopulating update passes are not the phase's subject)."""
+    rebuilt once (the graph phase's set-up, which the placement phase's
+    twins start from; ``--placement`` alone builds its own)."""
     from repro_torch.core.device_graph import DeviceGraph
 
     rng = np.random.default_rng([seed, 5])
@@ -6222,13 +6648,15 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         place_graph_batches=PLACE_GRAPH_BATCHES,
         place_round_lists=PLACE_ROUND_LISTS,
         hubert_frames=HUBERT_FRAMES, train_runs=TRAIN_RUNS,
-        train_steps=TRAIN_STEPS, bwd_rglru_shapes=RGLRU_BWD_SHAPES,
+        train_steps=RUN_TRAIN_STEPS, bwd_rglru_shapes=RGLRU_BWD_SHAPES,
         bwd_rwkv_shapes=RWKV_BWD_SHAPES, grad_layers=GRAD_LAYERS,
         grad_seq=GRAD_SEQ, family_train_runs=FAMILY_TRAIN_RUNS,
-        family_train_steps=FAMILY_TRAIN_STEPS, remat_seqs=REMAT_SEQS,
+        family_train_steps=RUN_FAMILY_TRAIN_STEPS, remat_seqs=RUN_REMAT_SEQS,
         remat_long=0, remat_bit=REMAT_BIT,
-        spread_layers=REMAT_SPREAD_LAYERS, out=print):
-    """Phases 2–23; returns the kernel records and each path's stats.
+        spread_layers=REMAT_SPREAD_LAYERS, sharded_runs=SHARDED_TRAIN,
+        sharded_steps=SHARDED_STEPS, sharded_serve=SHARDED_SERVE,
+        sharded_dryrun=True, out=print):
+    """Phases 2–24; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
     wrappers run their plain versions.)  The ``attn_remat`` sweep's long
@@ -6344,8 +6772,9 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         results[name] = s
         if name == "graph":
             graph_kept = s.pop("keep")
-        extra = (f"prepopulated {s['live_edges']} live edges in "
-                 f"{s['prepopulate_s']:.3f} s; eliminated {s['eliminated']}"
+        extra = (f"{s['live_edges']} live edges at the end, the tree's "
+                 f"half loaded from numpy in {s['prepopulate_s']:.3f} s; "
+                 f"eliminated {s['eliminated']}"
                  f", full rebuilds {s['full_rebuilds']}, fast merges "
                  f"{s['fast_merges']}; replay rebuilds "
                  f"{s['replay_rebuilds']}, merges {s['replay_merges']}"
@@ -6484,14 +6913,20 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
                      family_steps=family_train_steps, remat_seqs=remat_seqs,
                      remat_long=remat_long, remat_bit=remat_bit,
                      spread_layers=spread_layers, reduced=model_reduced,
-                     timing=timing, out=out)
+                     profile=False, timing=timing, out=out)
     results["train"] = tr["train"]
     for name, r in tr["bwd"].items():
         checked.calls[name] = r["checked"]
         checked.max_abs_err[name] = r["max_abs_err"]
         if timing:
             times[name] = r
-    out(f"run: phases 2-23 in {time.perf_counter() - t_run:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    results["sharded"] = sharded_phase(
+        torch, dev, seed, counters, runs=sharded_runs, steps=sharded_steps,
+        serve=sharded_serve, dryrun=sharded_dryrun, reduced=model_reduced,
+        out=out)
+    out(f"run: phases 2-24 in {time.perf_counter() - t_run:.1f} s")
 
     paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve",
                            "placement"),
@@ -6502,11 +6937,11 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
              "label_prop": ("graph", "unionfind", "serve", "placement"),
              "sorted_merge": ("map", "sketch", "serve", "placement"),
              "flash_attention": ("model", "gemma2", "recurrentgemma",
-                                 "llama4", "vision", "hubert"),
-             "rwkv6_scan": ("rwkv6", "train"),
-             "rglru_scan": ("recurrentgemma", "train"),
-             "rwkv6_scan_bwd": ("train",),
-             "rglru_scan_bwd": ("train",)}
+                                 "llama4", "vision", "hubert", "sharded"),
+             "rwkv6_scan": ("rwkv6", "train", "sharded"),
+             "rglru_scan": ("recurrentgemma", "train", "sharded"),
+             "rwkv6_scan_bwd": ("train", "sharded"),
+             "rglru_scan_bwd": ("train", "sharded")}
     kernels = []
     for name in counters:
         t = times.get(name, {})
@@ -6726,6 +7161,21 @@ def megapass_only(torch, seed):
     print(f"megapass: {time.perf_counter() - t0:.1f} s")
 
 
+def sharded_only(torch, seed):
+    """``--sharded``: phase 2 and phase 24 alone, for work on the mesh
+    layer."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import (rglru_scan, rglru_scan_bwd,
+                                                 rwkv6_scan, rwkv6_scan_bwd)
+
+    build_line()
+    counters = {"flash_attention": flash_attention,
+                "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan,
+                "rwkv6_scan_bwd": rwkv6_scan_bwd,
+                "rglru_scan_bwd": rglru_scan_bwd}
+    sharded_phase(torch, torch.device("cuda"), seed, counters)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6757,6 +7207,9 @@ def main(argv=None) -> int:
     ap.add_argument("--placement", action="store_true",
                     help="only the build and the placement phase (phase 2 "
                          "and the phase after 11)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only the build and the mesh layer's phase on "
+                         "one-rank meshes (phases 2 and 24)")
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
@@ -6813,6 +7266,9 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         train_only(torch, args.seed)
+        return 0
+    if args.sharded:
+        sharded_only(torch, args.seed)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,12 @@ other's trees:
 * **Keep-K + auto-resume** — checkpoints beyond ``keep`` are deleted after
   a successful write; ``restore_latest`` takes the newest directory that
   passes the integrity check (manifest readable, every array file there).
+* **Sharded trees** — a DTensor leaf is saved as its full array, gathered
+  (a collective: every rank of a sharded job saves, SPMD), and only rank
+  0 of the default process group writes; a DTensor leaf of the tree
+  restored into is laid out from the full array on its own mesh and
+  placements (each rank keeps its slice), whatever mesh wrote it — the
+  reference's elastic restart, its mesh re-derived from the world size.
 """
 from __future__ import annotations
 
@@ -56,13 +62,26 @@ def _flatten(tree) -> Dict[str, Any]:
     return dict(_items(tree))
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(t: torch.Tensor, copy: bool = False
               ) -> Tuple[np.ndarray, str]:
-    """A host array of ``t`` (bf16 as its uint16 bits) and its manifest
-    dtype; with ``copy``, one that shares no memory with ``t``."""
+    """A host array of ``t`` (bf16 as its uint16 bits; a DTensor's full
+    array) and its manifest dtype; with ``copy``, one that shares no
+    memory with ``t`` (a DTensor's full array is a view of its local
+    shard where no dim is split, so it is checked like a plain leaf)."""
     t = t.detach()
+    live = t.to_local() if hasattr(t, "full_tensor") else t
+    if live is not t:
+        t = t.full_tensor()
     host = t.cpu()
-    if copy and t.device.type == "cpu":
+    if copy and (host.untyped_storage().data_ptr()
+                 == live.untyped_storage().data_ptr()):
         host = host.clone()
     if t.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -89,6 +108,12 @@ def _unflatten_into(tree, flat: Dict[str, torch.Tensor], prefix=()):
     if tuple(arr.shape) != tuple(tree.shape):
         raise ValueError(f"shape mismatch for {key!r}: ckpt "
                          f"{tuple(arr.shape)} vs model {tuple(tree.shape)}")
+    if hasattr(tree, "device_mesh"):            # a DTensor: lay it out
+        from ..launch.sharding import distribute
+
+        return distribute(arr.to(device=tree.to_local().device,
+                                 dtype=tree.dtype),
+                          tree.placements, tree.device_mesh)
     return arr.to(device=tree.device, dtype=tree.dtype)
 
 
@@ -128,9 +153,9 @@ def _write(directory: str, step: int, arrays: Dict[str, Tuple[np.ndarray,
 def save_checkpoint(directory: str, step: int, tree, *,
                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Synchronous atomic write; returns the final checkpoint path."""
-    return _write(directory, step,
-                  {k: _to_numpy(v) for k, v in _flatten(tree).items()},
-                  extra)
+    arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    final = os.path.join(directory, f"step_{step:010d}")
+    return _write(directory, step, arrays, extra) if _writer() else final
 
 
 def _valid(path: str) -> bool:
@@ -222,6 +247,8 @@ class CheckpointManager:
         arrays = _host_copy(tree)
 
         def work():
+            if not _writer():
+                return
             try:
                 _write(self.directory, step, arrays, extra)
                 self._gc()

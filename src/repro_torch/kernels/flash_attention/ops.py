@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, _sharded
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -144,13 +144,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     either device, a call while autograd records and q, k or v requires
     grad raises ``RuntimeError`` instead of returning a result whose
     gradient would be cut (training runs ``attention_impl="xla_chunked"``,
-    as the reference's trainer does)."""
+    as the reference's trainer does).
+
+    On DTensors: the same, on each rank's local (batch, q-head) shards
+    (``kernels/_sharded.py``'s ``attention_call``); on fake tensors, a
+    result of the right shape and nothing run."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
             "flash_attention has no backward (the reference's Pallas kernel "
             "has none; ROADMAP D1c): train with "
             "attention_impl='xla_chunked', or call it under torch.no_grad()")
+    kw = dict(causal=causal, window=window, scale=scale, cap=cap,
+              q_offset=q_offset, kv_len=kv_len, block_q=block_q,
+              block_k=block_k)
+    if _sharded.is_dtensor(q):
+        return _sharded.attention_call(flash_attention, q, k, v, **kw)
+    if _sharded.is_fake(q):
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, cap=cap,

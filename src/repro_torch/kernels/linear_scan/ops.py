@@ -60,7 +60,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, _sharded
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 64                  # the widest hd rwkv6_scan.cu is built for
@@ -265,7 +265,19 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     there on; r, k and v of one dtype (f32 or bf16), read through their
     (batch, seq, head) strides with the last dim contiguous; w in f32
     (cast if not); ``hd`` at most ``MAX_HEAD``.  ``chunk`` is the plain
-    version's."""
+    version's.  On DTensors: the same, on each rank's local (batch, head)
+    shards (``kernels/_sharded.py``); on fake tensors, results of the
+    right shapes and nothing run."""
+    if _sharded.is_dtensor(r):
+        B, S, H, hd = r.shape
+        x4 = {"batch": 0, "head": 2}
+        st = {"batch": 0, "head": 1}
+        return _sharded.local_call(
+            lambda *a: rwkv6_scan(*a, chunk=chunk), (r, k, v, w, u, state0),
+            (x4, x4, x4, x4, {"head": 0}, st), (x4, st),
+            ((B, S, H, hd), (B, H, hd, hd)))
+    if _sharded.is_fake(r):
+        return _FakeScan.apply(("rwkv6", r.shape), r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0, chunk=chunk)
     body = "step" if r.shape[1] < SHORT_SEQ else "chunk"
@@ -339,10 +351,53 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     tensors: one kernel launch on the current stream, no host sync; a and
     b in f32 (cast if not), read through their (batch, seq) strides with
     the last dim contiguous, from any base (rows off 16 bytes are staged
-    4 bytes at a time: :func:`rglru_rows_aligned`)."""
+    4 bytes at a time: :func:`rglru_rows_aligned`).  On DTensors: the same,
+    on each rank's local (batch, channel) shards; on fake tensors, results
+    of the right shapes and nothing run."""
+    if _sharded.is_dtensor(a):
+        B, S, R = a.shape
+        x3, x2 = {"batch": 0, "chan": 2}, {"batch": 0, "chan": 1}
+        return _sharded.local_call(
+            lambda *t: rglru_scan(*t, chunk=chunk, block_r=block_r),
+            (a, b, h0), (x3, x3, x2), (x3, x2), ((B, S, R), (B, R)))
+    if _sharded.is_fake(a):
+        return _FakeScan.apply(("rglru", a.shape), a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0, chunk=chunk, block_r=block_r)
     return _RGLRUScan.apply(a, b, h0)
+
+
+class _FakeScan(torch.autograd.Function):
+    """Either scan on fake tensors (the dry run): f32 results of the
+    scan's shapes, gradients of the inputs' shapes, nothing computed.
+    The backward allocates what the card's does — f32 gradients,
+    ``rwkv6_scan_bwd``'s saved-state scratch while they live, then the
+    casts to the inputs' dtypes — so the dry run's step peak counts it."""
+
+    @staticmethod
+    def forward(ctx, what, *ins):
+        kind, shape = what
+        ctx.ins = [(t.shape, t.dtype) for t in ins]
+        ctx.scratch = 0
+        dev = ins[0].device
+        if kind == "rwkv6":
+            B, S, H, hd = shape
+            outs = ((B, S, H, hd), (B, H, hd, hd))
+            ctx.scratch = rwkv6_scan_bwd_scratch_bytes(B, S, H)
+        else:
+            B, S, R = shape
+            outs = ((B, S, R), (B, R))
+        return tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                     for s in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dev = grads[0].device
+        f32 = [torch.empty(s, dtype=torch.float32, device=dev)
+               for s, _ in ctx.ins]
+        scratch = torch.empty(ctx.scratch, dtype=torch.uint8, device=dev)
+        del scratch
+        return (None, *(g.to(d) for g, (_, d) in zip(f32, ctx.ins)))
 
 
 class _RGLRUScan(torch.autograd.Function):

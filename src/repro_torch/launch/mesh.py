@@ -14,8 +14,9 @@ processes side by side (test workers) never collide.  The backend follows
 the device: NCCL for CUDA, gloo for the CPU.
 
 :func:`make_production_mesh`, :func:`make_mesh_for_world` and
-:func:`mesh_axes` lay out the trainer's (pod, data, model) meshes; the
-port's trainer runs on one card and uses none of them yet (ROADMAP A19).
+:func:`mesh_axes` lay out the (pod, data, model) meshes of the sharded
+steps (``launch/steps.py``), the trainer (``launch/train.py``) and the
+dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 

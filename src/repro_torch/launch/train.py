@@ -1,6 +1,6 @@
 """End-to-end training loop with fault tolerance.
 
-The port of the reference's ``launch/train.py`` on one device:
+The port of the reference's ``launch/train.py``:
   * auto-resume from the newest valid checkpoint (atomic keep-K manager,
     the reference's on-disk format),
   * async checkpointing overlapped with compute,
@@ -11,23 +11,34 @@ The port of the reference's ``launch/train.py`` on one device:
     already updated (so the batch is applied twice), the port applies
     every batch exactly once and never replays an update;
   * the data pipeline is stateless-indexed and runs on a prefetch thread
-    (host/device overlap); a step's one blocking fetch is its loss.
+    (host/device overlap); a step's one blocking fetch is its loss;
+  * elastic scaling: under ``torchrun`` with a world of more than one
+    rank (the default process group started from its environment, one
+    rank a device: ``cuda:LOCAL_RANK``), the mesh is derived from the
+    *current* world size (``make_mesh_for_world(world, model_parallel=,
+    pods=)``, on the axes the layout uses: ``layout_mesh``), the parameters and the optimizer state are laid out by
+    ``param_specs(cfg, mesh, "train")`` (every rank draws the same
+    weights and keeps its shards), and every rank draws the same batch
+    from the pipeline and keeps its slice (``make_train_step``'s batch
+    specs).  A checkpoint holds full arrays, so it restores onto any
+    mesh.  ``model_parallel × pods`` must divide the world, and with one
+    process both must be 1 (``ValueError`` otherwise).
 
-Only one device: ``model_parallel > 1``, ``pods > 1`` or more than one
-visible CUDA device raise ``NotImplementedError``: a data- or
-model-parallel step needs the reference's param specs
-(``launch/sharding.py``, ROADMAP A19).  ``device=None`` means the card.
+``device=None`` means the card.
 
 Usage:
   python -m repro_torch.launch.train --arch qwen2_0_5b --steps 200 \\
       --reduced --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch ... \\
+      --model-parallel 2 [--pods 2 --grad-compress]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +49,7 @@ from ..core.batched_pq import resolve_device
 from ..data import make_pipeline
 from ..models import transformer
 from ..optim import adamw_init
+from .mesh import make_mesh_for_world
 from .steps import make_train_step
 
 
@@ -58,13 +70,23 @@ class StragglerWatchdog:
         return dt > self.factor * med
 
 
-def _one_device(dev: torch.device, model_parallel: int, pods: int) -> None:
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if model_parallel > 1 or pods > 1 or n_dev > 1:
-        raise NotImplementedError(
-            f"the port trains on one device (model_parallel "
-            f"{model_parallel}, pods {pods}, {n_dev} visible devices): a "
-            f"mesh needs launch/sharding.py's param specs (ROADMAP A19)")
+def _world(dev: torch.device) -> Tuple[int, torch.device]:
+    """(the number of ranks training, this rank's device): the default
+    process group's world, started from torchrun's environment
+    (``WORLD_SIZE``; NCCL on the card, gloo on the CPU) when it is not yet
+    initialized; a rank's card is ``cuda:LOCAL_RANK``."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return 1, dev
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world = dist.get_world_size()
+    if dev.type == "cuda" and world > 1:
+        dev = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
+        torch.cuda.set_device(dev)
+    return world, dev
 
 
 def device_batch(cfg, hb: Dict[str, np.ndarray], step: int, seed: int,
@@ -104,14 +126,26 @@ def train(arch_id: str, *, steps: int = 100, reduced: bool = True,
           fail_at_step: Optional[int] = None,
           device=None) -> Dict[str, Any]:
     """Returns the final metrics dict: the reference's keys, plus
-    ``step_ms`` (the median step, loss fetched, after the first) and
-    ``tokens_per_s`` (batch·seq over it).  ``fail_at_step`` simulates a
-    crash (for the restart integration test)."""
-    dev = resolve_device(device)
-    _one_device(dev, model_parallel, pods)
+    ``step_ms`` (the median step, loss fetched, after the first),
+    ``tokens_per_s`` (batch·seq over it), ``losses`` (this run's, a step
+    each) and ``world`` (its ranks).  ``fail_at_step`` simulates a crash
+    (for the restart integration test)."""
+    world, dev = _world(resolve_device(device))
     cfg = configs.get_reduced(arch_id) if reduced else configs.get(arch_id)
+    mesh = None
+    if world > 1 or model_parallel * pods > 1:
+        from .sharding import layout_mesh
+
+        mesh = layout_mesh(cfg, make_mesh_for_world(
+            world, model_parallel=model_parallel, pods=pods, device=dev),
+            "train", batch)
 
     params = transformer.model_init(seed, cfg, device=dev)
+    if mesh is not None:
+        from .sharding import distribute_tree, param_specs
+
+        params = distribute_tree(params, param_specs(cfg, mesh, "train"),
+                                 mesh)
     opt = adamw_init(params)
     start_step = 0
 
@@ -125,7 +159,7 @@ def train(arch_id: str, *, steps: int = 100, reduced: bool = True,
             print(f"[train] resumed from step {start_step}")
 
     pipe = make_pipeline(cfg.vocab, seq, batch, seed=seed)
-    step_fn = make_train_step(cfg, lr=lr, grad_compress=grad_compress)
+    step_fn = make_train_step(cfg, mesh, lr=lr, grad_compress=grad_compress)
 
     wd = StragglerWatchdog(factor=watchdog_factor)
     losses, times = [], []
@@ -178,7 +212,8 @@ def train(arch_id: str, *, steps: int = 100, reduced: bool = True,
     step_s = float(np.median(times[1:] if len(times) > 1 else times))
     return dict(final_loss=losses[-1], first_loss=losses[0], steps=steps,
                 loss_drop=losses[0] - losses[-1], step_ms=step_s * 1e3,
-                tokens_per_s=batch * seq / step_s)
+                tokens_per_s=batch * seq / step_s, losses=losses,
+                world=world)
 
 
 def tput_fmt(x: float) -> str:

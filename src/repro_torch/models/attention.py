@@ -34,9 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import _sharded
 from ..kernels.flash_attention import flash_attention
 from .config import ArchConfig, LayerSpec
-from .layers import dense, dense_init, rope, softcap
+from .layers import (FSDP, TENSOR, dense, dense_init, dense_specs, rope, softcap,
+                     split_heads, write_into)
 
 NEG_INF = -1e30
 IMPLS = ("xla_chunked", "naive", "pallas")
@@ -49,6 +51,14 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
             "k": dense_init(gen, D, K * hd, bias=cfg.qkv_bias, lead=lead),
             "v": dense_init(gen, D, K * hd, bias=cfg.qkv_bias, lead=lead),
             "o": dense_init(gen, H * hd, D, lead=lead)}
+
+
+def attn_specs(cfg: ArchConfig, lspec: LayerSpec):
+    """The reference's specs for :func:`attn_init`'s leaves."""
+    b = cfg.qkv_bias
+    return {"q": dense_specs(bias=b), "k": dense_specs(bias=b),
+            "v": dense_specs(bias=b),
+            "o": dense_specs(in_axis=TENSOR, out_axis=FSDP)}
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +118,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runs under ``torch.utils.checkpoint`` (non-reentrant), so the backward
     recomputes the pair's scores, mask and exponentials instead of keeping
     them; the result and every gradient are bit-equal to the flag off.
-    Without a gradient it changes nothing."""
+    Without a gradient it changes nothing.  On DTensors it runs on each
+    rank's local (batch, q-head) shards, as the kernels do
+    (``kernels/_sharded.py``'s ``attention_call``)."""
+    if _sharded.is_dtensor(q):
+        return _sharded.attention_call(
+            blockwise_attention, q, k, v, causal=causal, window=window,
+            scale=scale, cap=cap, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            kv_len=kv_len, attn_remat=attn_remat)
     B, Sq, H, hd = q.shape
     _, Skv, K, _ = k.shape
     hd_v = v.shape[-1]
@@ -131,8 +148,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid_kv=Skv if kv_len is None else kv_len)
     remat = attn_remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    out = torch.zeros((B, K, G, nq * q_chunk, hd_v), dtype=q.dtype,
-                      device=dev)
+    # each q chunk's rows (zeros for a chunk no kv chunk reaches), joined
+    # by one cat: no in-place write into a buffer, so the same code runs
+    # on DTensors
+    rows = [None] * nq
     ar_q = torch.arange(q_chunk, device=dev)
     ar_k = torch.arange(kv_chunk, device=dev)
     for i, js in _block_pairs(nq, nkv, q_chunk, kv_chunk, causal, window):
@@ -148,15 +167,23 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             args = (qi, kj, vj, m, l, acc, q_pos, k_pos)
             m, l, acc = (checkpoint(pair, *args, use_reentrant=False)
                          if remat else pair(*args))
-        out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = \
-            (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        rows[i] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    rows = [r if r is not None else
+            torch.zeros((B, K, G, q_chunk, hd_v), dtype=q.dtype, device=dev)
+            for r in rows]
+    out = torch.cat(rows, dim=3) if nq > 1 else rows[0]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, nq * q_chunk, H, hd_v)
     return out[:, :Sq]
 
 
 def naive_attention(q, k, v, *, causal, window=0, scale, cap=0.0,
                     kv_len=None):
-    """Reference O(S^2)-memory attention (oracle for tests)."""
+    """Reference O(S^2)-memory attention (oracle for tests).  On DTensors
+    it runs on each rank's local (batch, q-head) shards."""
+    if _sharded.is_dtensor(q):
+        return _sharded.attention_call(
+            naive_attention, q, k, v, causal=causal, window=window,
+            scale=scale, cap=cap, kv_len=kv_len)
     B, Sq, H, hd = q.shape
     _, Skv, K, _ = k.shape
     hd_v = v.shape[-1]
@@ -189,8 +216,24 @@ def decode_attention(q, k_cache, v_cache, n_valid: int, *, scale, cap=0.0,
     is ``stale``, so the step attends the ``window`` positions the
     full-sequence forward attends (``k_pos > q_pos - window``).  (The
     reference attends every written slot: window + 1 positions once its
-    ring is full, one more than its own forward.)
+    ring is full, one more than its own forward.)  On DTensors it runs on
+    each rank's local (batch, head) shards, unless the cache is sharded
+    along its sequence (a KV-head count that does not divide the model
+    axis): then DTensor reduces the softmax and p·v across the shards.
     """
+    if _sharded.is_dtensor(k_cache) and not any(
+            getattr(p, "dim", None) == 1 for p in k_cache.placements):
+        # the cache whole along the sequence: local per (batch, head)
+        return _sharded.attention_call(
+            decode_attention, q, k_cache, v_cache, n_valid=n_valid,
+            scale=scale, cap=cap, stale=stale)
+    if _sharded.is_dtensor(q):
+        # the cache's sequence is sharded: q's heads whole on every rank
+        # (a (K, G) split of a head shard need not divide)
+        from torch.distributed.tensor import Replicate, Shard
+
+        q = q.redistribute(q.device_mesh, [
+            Replicate() if p == Shard(2) else p for p in q.placements])
     B, _, H, hd = q.shape
     _, Smax, K, _ = k_cache.shape
     hd_v = v_cache.shape[-1]
@@ -215,10 +258,10 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
                ctx: Optional[torch.Tensor] = None,
                cache: Optional[Dict[str, Any]] = None,
                cache_len: Optional[int] = None,
-               mode: str = "train") -> torch.Tensor:
+               mode: str = "train", shd=None) -> torch.Tensor:
     """Self or cross attention.  Returns y; in prefill and decode mode
     ``cache`` (``{"k", "v"}``) is updated in place (a cross layer's only
-    at prefill)."""
+    at prefill).  ``shd``: the model's ``ShardCtx`` (or None)."""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = cfg.attn_scale or hd ** -0.5
@@ -226,17 +269,20 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
     causal = cfg.causal and not cross
     window = lspec.window if lspec.mixer == "local" else 0
 
-    q = dense(p["q"], x).reshape(B, S, H, hd)
+    q = split_heads(shd, dense(p["q"], x), H)
     if cross and mode == "decode":
         k = v = None          # the image K/V were cached at prefill
     else:
         src = ctx if cross else x
-        Skv = src.shape[1]
-        k = dense(p["k"], src).reshape(B, Skv, K, hd)
-        v = dense(p["v"], src).reshape(B, Skv, K, hd)
+        k = split_heads(shd, dense(p["k"], src), K)
+        v = split_heads(shd, dense(p["v"], src), K)
     if not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if shd is not None and mode in ("train", "prefill"):
+        q = shd.heads(q)
+        if k is not None:
+            k, v = shd.heads(k), shd.heads(v)
 
     if cross and mode in ("train", "prefill"):
         if mode == "prefill":
@@ -244,8 +290,8 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
                 raise ValueError(
                     f"a cross layer's cache holds {tuple(cache['k'].shape)} "
                     f"K/V, the context gives {tuple(k.shape)}")
-            cache["k"].copy_(k)
-            cache["v"].copy_(v)
+            write_into(cache["k"], k)
+            write_into(cache["v"], v)
         o = naive_attention(q, k, v, causal=False, scale=scale,
                             cap=cfg.attn_softcap)
     elif cross and mode == "decode":
@@ -276,11 +322,11 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         if S >= Smax:
             # ring cache (local layers): keep the last Smax tokens at
             # slots t % Smax (token t lands at slot t mod Smax)
-            ck.copy_(torch.roll(k[:, S - Smax:], S % Smax, dims=1))
-            cv.copy_(torch.roll(v[:, S - Smax:], S % Smax, dims=1))
+            write_into(ck, torch.roll(k[:, S - Smax:], S % Smax, dims=1))
+            write_into(cv, torch.roll(v[:, S - Smax:], S % Smax, dims=1))
         else:
-            ck[:, :S] = k
-            cv[:, :S] = v
+            write_into(ck, k, 1)
+            write_into(cv, v, 1)
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 scale=scale, cap=cfg.attn_softcap,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
@@ -288,8 +334,8 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         ck, cv = cache["k"], cache["v"]
         Smax = ck.shape[1]
         slot = cache_len % Smax                  # ring for local layers
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
+        write_into(ck, k, 1, slot)
+        write_into(cv, v, 1, slot)
         # a full ring of window + 1 slots also holds position
         # cache_len - window, outside the window: its slot is the next one
         stale = (cache_len + 1) % Smax if window and cache_len >= window \

@@ -25,9 +25,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..kernels import _sharded
 from .attention import NEG_INF, blockwise_attention
 from .config import ArchConfig, LayerSpec
-from .layers import dense, dense_init, rmsnorm, rmsnorm_init, rope
+from .layers import (FSDP, TENSOR, dense, dense_init, dense_specs, rmsnorm,
+                     rmsnorm_init, rmsnorm_specs, rope, split_heads,
+                     write_into)
 
 
 def mla_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
@@ -47,33 +50,51 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
             "o": dense_init(gen, H * m.v_head_dim, D, lead=lead)}
 
 
+def mla_specs(cfg: ArchConfig, lspec: LayerSpec):
+    """The reference's specs for :func:`mla_init`'s leaves."""
+    return {"q": dense_specs(), "dkv": dense_specs(out_axis=None),
+            "kv_norm": rmsnorm_specs(), "uk": dense_specs(in_axis=None),
+            "uv": dense_specs(in_axis=None),
+            "o": dense_specs(in_axis=TENSOR, out_axis=FSDP)}
+
+
 def _expand_kv(p, cfg: ArchConfig, c_kv: torch.Tensor,
-               k_rope: torch.Tensor):
+               k_rope: torch.Tensor, shd=None):
     """(B,S,R),(B,S,dr) -> k (B,S,H,dn+dr), v (B,S,H,dv)."""
     m = cfg.mla
     B, S, _ = c_kv.shape
     H = cfg.n_heads
-    k_nope = dense(p["uk"], c_kv).reshape(B, S, H, m.nope_head_dim)
-    v = dense(p["uv"], c_kv).reshape(B, S, H, m.v_head_dim)
+    k_nope = split_heads(shd, dense(p["uk"], c_kv), H)
+    v = split_heads(shd, dense(p["uv"], c_kv), H)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         B, S, H, m.rope_head_dim)], dim=-1)
     return k, v
+
+
+def _decode_core(qq, k, v, *, mask, scale: float, dtype):
+    """The expanded decode step's attention: (B,1,H,dq) against (B,S,H,*)
+    K/V, ``mask`` the written slots.  On DTensors the caller runs it on
+    each rank's local (batch, head) shards."""
+    s_ = torch.einsum("bshd,bchd->bhsc", qq.float(), k.float()) * scale
+    att = torch.softmax(torch.where(mask, s_, NEG_INF), dim=-1)
+    return torch.einsum("bhsc,bchv->bshv", att.to(v.dtype).float(),
+                        v.float()).to(dtype)
 
 
 def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[Dict[str, Any]] = None,
               cache_len: Optional[int] = None, mode: str = "train",
-              absorb: bool = False, **_) -> torch.Tensor:
+              absorb: bool = False, shd=None, **_) -> torch.Tensor:
     """Returns y; in prefill and decode mode ``cache`` (``{"c", "kr"}``)
-    is updated in place."""
+    is updated in place.  ``shd``: the model's ``ShardCtx`` (or None)."""
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
     dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
     scale = (dn + dr) ** -0.5
 
-    q = dense(p["q"], x).reshape(B, S, H, dn + dr)
+    q = split_heads(shd, dense(p["q"], x), H)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
@@ -84,17 +105,19 @@ def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
 
     if mode in ("train", "prefill"):
         if mode == "prefill":
-            cache["c"][:, :S] = c_kv
-            cache["kr"][:, :S] = k_rope
-        k, v = _expand_kv(p, cfg, c_kv, k_rope)
+            write_into(cache["c"], c_kv, 1)
+            write_into(cache["kr"], k_rope, 1)
+        k, v = _expand_kv(p, cfg, c_kv, k_rope, shd)
         qq = torch.cat([q_nope, q_rope], dim=-1)
+        if shd is not None:
+            qq, k, v = shd.heads(qq), shd.heads(k), shd.heads(v)
         o = blockwise_attention(qq, k, v, causal=cfg.causal, scale=scale,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                 attn_remat=cfg.attn_remat)
     elif mode == "decode":
         cc, ckr_c = cache["c"], cache["kr"]
-        cc[:, cache_len] = c_kv[:, 0]
-        ckr_c[:, cache_len] = k_rope[:, 0]
+        write_into(cc, c_kv, 1, cache_len)
+        write_into(ckr_c, k_rope, 1, cache_len)
         Smax = cc.shape[1]
         mask = torch.arange(Smax, device=x.device) < cache_len + 1
         if absorb:
@@ -111,13 +134,11 @@ def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
             wuv = p["uv"]["w"].reshape(m.kv_lora_rank, H, dv)
             o = torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype), wuv)
         else:
-            k, v = _expand_kv(p, cfg, cc, ckr_c)
+            k, v = _expand_kv(p, cfg, cc, ckr_c, shd)
             qq = torch.cat([q_nope, q_rope], dim=-1)
-            s_ = torch.einsum("bshd,bchd->bhsc", qq.float(),
-                              k.float()) * scale
-            att = torch.softmax(torch.where(mask, s_, NEG_INF), dim=-1)
-            o = torch.einsum("bhsc,bchv->bshv", att.to(v.dtype).float(),
-                             v.float()).to(x.dtype)
+            kw = dict(mask=mask, scale=scale, dtype=x.dtype)
+            o = (_sharded.attention_call(_decode_core, qq, k, v, **kw)
+                 if _sharded.is_dtensor(qq) else _decode_core(qq, k, v, **kw))
     else:
         raise ValueError(f"unknown mode {mode!r}")
 

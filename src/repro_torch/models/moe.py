@@ -31,9 +31,9 @@ The steps, each the reference's:
 per-row capacity (T = S), the reference's ``vmap``: here one batched sort
 over (B, S·K) rows.  The shared expert is added in f32 and the sum cast
 back to x's dtype.  The reference's expert-parallel and FSDP layouts
-(``moe_fsdp_axis``, ``moe_ep_serve``) place the weights on a mesh; the
-port's trainer has one device (ROADMAP A19) and the leaves keep their
-shapes.
+(``moe_fsdp_axis``, ``moe_ep_serve``) are :func:`moe_specs` and
+``launch/sharding.py``'s; the dispatch itself does not run on a mesh of
+more than one rank yet (ROADMAP A19b).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ from typing import Dict, Tuple
 import torch
 
 from .config import ArchConfig
-from .layers import act_fn, dense, dense_init
+from .layers import FSDP, TENSOR, act_fn, dense, dense_init, dense_specs, spec
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, *,
@@ -66,6 +66,23 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, *,
         p["sh_gate"] = dense_init(gen, D, fs, lead=lead)
         p["sh_down"] = dense_init(gen, fs, D, lead=lead)
     return p
+
+
+def moe_specs(cfg: ArchConfig):
+    """The reference's specs for :func:`moe_init`'s leaves
+    (``moe_fsdp_axis``: the expert weights' FSDP dim)."""
+    s = {"router": dense_specs(out_axis=None)}
+    if cfg.moe_fsdp_axis == "f":
+        # Megatron-style: split the expert FFN dim
+        s.update(w_up=spec(TENSOR, None, FSDP), w_gate=spec(TENSOR, None, FSDP),
+                 w_down=spec(TENSOR, FSDP, None))
+    else:
+        s.update(w_up=spec(TENSOR, FSDP, None), w_gate=spec(TENSOR, FSDP, None),
+                 w_down=spec(TENSOR, None, FSDP))
+    if cfg.moe.n_shared:
+        s.update(sh_up=dense_specs(), sh_gate=dense_specs(),
+                 sh_down=dense_specs(in_axis=TENSOR, out_axis=FSDP))
+    return s
 
 
 def router_probs(p, xt: torch.Tensor) -> torch.Tensor:
@@ -172,7 +189,16 @@ def _routed(p, cfg: ArchConfig, xt: torch.Tensor, act) -> torch.Tensor:
 
 
 def moe_apply(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Routed FFN of x (B, S, D), plus the shared expert; x's dtype."""
+    """Routed FFN of x (B, S, D), plus the shared expert; x's dtype.  On
+    a DTensor (a sharded step) it raises ``NotImplementedError``: DTensor
+    has no sharding rule for the dispatch's sort and searchsorted, and a
+    per-shard dispatch would change the capacity (ROADMAP A19b)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        raise NotImplementedError(
+            "the MoE dispatch does not run on a mesh of DTensors yet "
+            "(ROADMAP A19b)")
     m = cfg.moe
     B, S, D = x.shape
     act = act_fn(cfg.ffn_act)

@@ -31,7 +31,7 @@ compares the kernel path with on the card.  The seam is not a config
 field, a flag or an environment variable.
 
 Caches are updated in place (the reference returns new arrays): each
-mixer ``copy_``s its new ``state``, ``h``, ``conv`` and ``x_prev`` into
+mixer writes its new ``state``, ``h``, ``conv`` and ``x_prev`` into
 the cache tensors, in their dtypes.  ``state`` and ``h`` are f32;
 ``x_prev`` and ``conv`` take the cache's dtype (bf16 by default, where
 the reference always rounds them to bf16).
@@ -45,7 +45,8 @@ import torch.nn.functional as F
 
 from ..kernels import linear_scan
 from .config import ArchConfig, LayerSpec
-from .layers import dense, dense_init
+from .layers import (FSDP, TENSOR, dense, dense_init, dense_specs, spec,
+                     split_heads, write_into)
 
 # the seam: the scans the mixers call (see the module docstring)
 SCANS = {"rwkv6": linear_scan.rwkv6_scan, "rglru": linear_scan.rglru_scan}
@@ -78,6 +79,15 @@ def rglru_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
             "gate_x": dense_init(gen, R, R, lead=lead),
             "lam": lam,
             "out": dense_init(gen, R, D, lead=lead)}
+
+
+def rglru_specs(cfg: ArchConfig, lspec: LayerSpec):
+    """The reference's specs for :func:`rglru_init`'s leaves."""
+    return {"in_x": dense_specs(), "in_g": dense_specs(),
+            "conv_w": spec(None, TENSOR), "conv_b": spec(TENSOR),
+            "gate_a": dense_specs(in_axis=None),
+            "gate_x": dense_specs(in_axis=None), "lam": spec(TENSOR),
+            "out": dense_specs(in_axis=TENSOR, out_axis=FSDP)}
 
 
 def _causal_conv(p, u: torch.Tensor, prev: Optional[torch.Tensor]
@@ -120,17 +130,17 @@ def rglru_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         h = a[:, 0] * h_prev
         h = h + b[:, 0]
         hs = h[:, None]
-        cache["h"].copy_(h)
+        write_into(cache["h"], h)
     elif mode in ("train", "prefill"):
         h0 = _zeros(a[:, 0].shape, torch.float32, a.device)
         hs, h = SCANS["rglru"](a, b, h0)                 # h_t, zero init
         if mode == "prefill":
-            cache["h"].copy_(h)
+            write_into(cache["h"], h)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if mode != "train":
         W = p["conv_w"].shape[0]
-        cache["conv"].copy_(full[:, full.shape[1] - (W - 1):])
+        write_into(cache["conv"], full[:, full.shape[1] - (W - 1):])
     return dense(p["out"], (hs * g).to(x.dtype))
 
 
@@ -171,6 +181,19 @@ def rwkv6_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
     return p
 
 
+def rwkv6_specs(cfg: ArchConfig, lspec: LayerSpec):
+    """The reference's specs for :func:`rwkv6_init`'s leaves."""
+    s = {f"w_{n}": dense_specs() for n in "rkvg"}
+    s["w_o"] = dense_specs(in_axis=TENSOR, out_axis=FSDP)
+    for n in "rkvgw":
+        s[f"mu_{n}"] = spec(None)
+        s[f"lora_b_{n}"] = dense_specs(in_axis=None, out_axis=None)
+    s["lora_a"] = dense_specs(out_axis=None)
+    s["lora_wa"] = dense_specs(out_axis=None)
+    s.update(w0=spec(None), u=spec(None, None), ln_g=spec(None))
+    return s
+
+
 def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]
                  ) -> torch.Tensor:
     """The x_{t-1} stream; x_prev is the final token of the previous
@@ -184,9 +207,11 @@ def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]
 
 def rwkv6_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
                 cache: Optional[Dict[str, Any]] = None,
-                mode: str = "train", **_) -> torch.Tensor:
+                mode: str = "train", shd=None, **_) -> torch.Tensor:
     """The RWKV-6 time-mix.  Returns y; in prefill and decode mode
-    ``cache`` (``{"state", "x_prev"}``) is updated in place."""
+    ``cache`` (``{"state", "x_prev"}``) is updated in place.  ``shd``: the
+    model's ``ShardCtx`` (or None), which keeps each head whole on one
+    rank."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     B, S, D = x.shape
@@ -202,13 +227,13 @@ def rwkv6_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
         mix = p[f"mu_{n}"] + lora @ p[f"lora_b_{n}"]["w"].float()
         return (xf + delta * mix).to(x.dtype)
 
-    r = dense(p["w_r"], mixed("r")).reshape(B, S, H, hd)
-    k = dense(p["w_k"], mixed("k")).reshape(B, S, H, hd)
-    v = dense(p["w_v"], mixed("v")).reshape(B, S, H, hd)
+    r = split_heads(shd, dense(p["w_r"], mixed("r")), H)
+    k = split_heads(shd, dense(p["w_k"], mixed("k")), H)
+    v = split_heads(shd, dense(p["w_v"], mixed("v")), H)
     g = F.silu(dense(p["w_g"], mixed("g")).float())
     xw = torch.tanh(dense(p["lora_wa"], mixed("w"))).float()
     logw = -torch.exp(p["w0"] + xw @ p["lora_b_w"]["w"].float())
-    w = torch.exp(logw).reshape(B, S, H, hd)    # per-channel decay in (0,1)
+    w = split_heads(shd, torch.exp(logw), H)    # per-channel decay in (0,1)
 
     state0 = (cache["state"] if cache is not None
               else _zeros((B, H, hd, hd), torch.float32, x.device))
@@ -222,8 +247,8 @@ def rwkv6_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
     out = dense(p["w_o"], y.to(x.dtype))
 
     if mode != "train":
-        cache["state"].copy_(state)
-        cache["x_prev"].copy_(x[:, -1])
+        write_into(cache["state"], state)
+        write_into(cache["x_prev"], x[:, -1])
     return out
 
 
@@ -253,6 +278,14 @@ def rwkv_cm_init(gen: torch.Generator, cfg: ArchConfig, *,
                                device=dev)}
 
 
+def rwkv_cm_specs(cfg: ArchConfig):
+    """The reference's specs for :func:`rwkv_cm_init`'s leaves."""
+    return {"w_k": dense_specs(),
+            "w_v": dense_specs(in_axis=TENSOR, out_axis=FSDP),
+            "w_r": dense_specs(out_axis=None),
+            "mu_k": spec(None), "mu_r": spec(None)}
+
+
 def rwkv_cm_apply(p, cfg: ArchConfig, x: torch.Tensor, *,
                   cache: Optional[Dict[str, Any]] = None,
                   mode: str = "train") -> torch.Tensor:
@@ -267,7 +300,7 @@ def rwkv_cm_apply(p, cfg: ArchConfig, x: torch.Tensor, *,
     out = torch.sigmoid(dense(p["w_r"], xr).float()).to(x.dtype) \
         * dense(p["w_v"], kk)
     if mode != "train":
-        cache["x_prev"].copy_(x[:, -1])
+        write_into(cache["x_prev"], x[:, -1])
     return out
 
 

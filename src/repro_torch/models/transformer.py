@@ -30,11 +30,21 @@ levels nest, both non-reentrant: the period's recompute re-enters each
 pair's checkpoint, and the pair's backward recomputes its scores once
 more — the reference's ``jax.checkpoint(body)`` around
 ``jax.checkpoint(step)``.  Without a gradient neither flag changes
-anything.  The reference's ``ShardCtx`` is not
-carried over: the port's trainer has one device (A19).
+anything.
+
+**Sharding.**  :func:`model_specs` is the reference's spec tree for
+``model_init``'s parameters (``launch/sharding.py`` resolves it).  With a
+:class:`ShardCtx` over a mesh, ``model_apply`` runs on DTensors (the
+parameters and the batch distributed by ``launch/sharding.py``) and pins
+the residual stream, the attention heads and the logits to the
+reference's placements, redistributing where they differ; every other
+op's placement is DTensor's sharding propagation, and the kernels run
+on each rank's local shards (``kernels/_sharded.py``).  Without a mesh
+``ShardCtx`` does nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
@@ -45,8 +55,121 @@ from torch.utils.checkpoint import checkpoint
 from ..core.batched_pq import resolve_device
 from . import attention, mla, moe, recurrent
 from .config import ArchConfig, LayerSpec
-from .layers import (act_fn, dense, dense_init, embed, embed_init, rmsnorm,
-                     rmsnorm_init, softcap, unembed)
+from .layers import (FSDP, TENSOR, Spec, act_fn, dense, dense_init,
+                     dense_specs, embed, embed_init, embed_specs, map_specs,
+                     rmsnorm, rmsnorm_init, rmsnorm_specs, softcap,
+                     spec_placements, unembed, write_into)
+
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ShardCtx:
+    """Activation sharding (the reference's ``ShardCtx``): with a mesh,
+    each method redistributes a DTensor to the reference's placement;
+    ``mesh=None`` (one device) is a no-op, and so is a plain tensor."""
+
+    mesh: Any = None
+    dp: Tuple[str, ...] = ("data",)
+    tensor: Optional[str] = "model"
+    seq_shard: bool = False
+
+    def scope(self):
+        """The context a sharded forward and backward run in: plain tensors
+        made inside the model (positions, masks, zero states) count as
+        replicated DTensors.  Re-entrant (DTensor's own
+        ``implicit_replication`` clears the flag on exit, even nested);
+        the flag is thread-local and autograd carries it to its worker
+        threads."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return _implicit_replication()
+
+    def _dp_fit(self, dim: int):
+        """Longest dp prefix dividing ``dim`` (pure_dp prefill batches may
+        not cover data×model — fall back to data, then replicate)."""
+        axes = list(self.dp)
+        while axes:
+            size = math.prod(self.mesh[a].size() for a in axes)
+            if dim % size == 0:
+                return tuple(axes)
+            axes.pop()
+        return None
+
+    def _pin(self, x, s):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        want = spec_placements(Spec(s), self.mesh)
+        if list(x.placements) != want:
+            if any(isinstance(p, Partial) for p in x.placements):
+                # reduce a partial sum (e.g. a vocab-sharded lookup's)
+                # first, then lay it out
+                x = x.redistribute(self.mesh, [
+                    Replicate() if isinstance(p, Partial) else p
+                    for p in x.placements])
+            x = x.redistribute(self.mesh, want)
+        return x
+
+    def act(self, x):
+        """Residual stream (B,S,D)."""
+        if self.mesh is None:
+            return x
+        seq = self.tensor if (self.seq_shard and x.shape[1] > 1) else None
+        return self._pin(x, (self._dp_fit(x.shape[0]), seq, None))
+
+    def whole_seq(self, x):
+        """A mixer's, FFN's or the head's input (B,S,D): with
+        ``seq_shard`` the residual stream's sequence shards gathered
+        (sequence parallelism: the norms run on the shards, the
+        projections on the whole sequence, and :meth:`act` scatters each
+        output again before it joins the residual stream — so the
+        backward's gradients reach the projections whole too)."""
+        if self.mesh is None or not self.seq_shard:
+            return x
+        return self._pin(x, (self._dp_fit(x.shape[0]), None, None))
+
+    def _head_axis(self, n_heads: int):
+        if self.tensor is None:
+            return None
+        return (self.tensor if n_heads % self.mesh[self.tensor].size() == 0
+                else None)
+
+    def heads(self, x):
+        """Attention tensors (B,S,H,hd): heads on the tensor axis when
+        divisible, else batch-only (replicated heads)."""
+        if self.mesh is None or self.tensor is None or x.dim() != 4:
+            return x
+        return self._pin(x, (self._dp_fit(x.shape[0]), None,
+                             self._head_axis(x.shape[2]), None))
+
+    def split_heads(self, x, n_heads: int):
+        """(B,S,H·hd) -> (B,S,H,hd).  On a mesh the flat tensor is first
+        pinned to :meth:`heads`'s placement, so the split never cuts a
+        head across ranks (a DTensor view cannot)."""
+        B, S, F = x.shape
+        if self.mesh is not None:
+            x = self._pin(x, (self._dp_fit(B), None,
+                              self._head_axis(n_heads)))
+        return x.reshape(B, S, n_heads, F // n_heads)
+
+    def logits(self, x):
+        if self.mesh is None:
+            return x
+        return self._pin(x, (self._dp_fit(x.shape[0]), None, self.tensor))
+
+
+NO_SHARD = ShardCtx()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    prev = torch._C._get_dtensor_allow_implicit_replication()
+    torch._C._set_dtensor_allow_implicit_replication(True)
+    try:
+        yield
+    finally:
+        torch._C._set_dtensor_allow_implicit_replication(prev)
+
 
 # mixer kind -> (init, apply)
 _MIXERS = {
@@ -86,6 +209,18 @@ def ffn_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
     return p
 
 
+def ffn_specs(cfg: ArchConfig, lspec: LayerSpec):
+    if lspec.ffn == "moe":
+        return moe.moe_specs(cfg)
+    if lspec.ffn == "rwkv_cm":
+        return recurrent.rwkv_cm_specs(cfg)
+    s = {"up": dense_specs(), "down": dense_specs(in_axis=TENSOR,
+                                                  out_axis=FSDP)}
+    if lspec.ffn == "glu":
+        s["gate"] = dense_specs()
+    return s
+
+
 def ffn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, cache=None,
               mode="train"):
     """GLU or MLP, the activation in f32, cast back before ``down``; the
@@ -119,23 +254,40 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec,
     return p
 
 
+_MIXER_SPECS = {"full": attention.attn_specs, "local": attention.attn_specs,
+                "mla": mla.mla_specs, "rglru": recurrent.rglru_specs,
+                "rwkv6": recurrent.rwkv6_specs}
+
+
+def block_specs(cfg: ArchConfig, lspec: LayerSpec):
+    s = {"n1": rmsnorm_specs(), "mixer": _MIXER_SPECS[lspec.mixer](cfg, lspec),
+         "n2": rmsnorm_specs(), "ffn": ffn_specs(cfg, lspec)}
+    if cfg.post_norm:
+        s["pn1"] = rmsnorm_specs()
+        s["pn2"] = rmsnorm_specs()
+    return s
+
+
 def block_apply(p, cfg: ArchConfig, lspec: LayerSpec, x, *, positions,
-                ctx=None, cache=None, cache_len=None, mode="train"):
+                ctx=None, cache=None, cache_len=None, mode="train",
+                shd: ShardCtx = NO_SHARD):
     """One block; in prefill and decode mode ``cache`` (the block's) is
     updated in place.  ``ctx``: what a cross-attention layer attends."""
     _, apply_fn = _MIXERS[lspec.mixer]
-    h = apply_fn(p["mixer"], cfg, lspec, rmsnorm(p["n1"], x),
-                 positions=positions, ctx=ctx,
-                 cache=cache["mixer"] if cache else None,
-                 cache_len=cache_len, mode=mode)
+    h = shd.act(apply_fn(p["mixer"], cfg, lspec,
+                         shd.whole_seq(rmsnorm(p["n1"], x)),
+                         positions=positions, ctx=ctx,
+                         cache=cache["mixer"] if cache else None,
+                         cache_len=cache_len, mode=mode, shd=shd))
     if cfg.post_norm:
         h = rmsnorm(p["pn1"], h)
     x = x + h
-    h = ffn_apply(p["ffn"], cfg, lspec, rmsnorm(p["n2"], x),
-                  cache=cache["ffn"] if cache else None, mode=mode)
+    h = shd.act(ffn_apply(p["ffn"], cfg, lspec,
+                          shd.whole_seq(rmsnorm(p["n2"], x)),
+                          cache=cache["ffn"] if cache else None, mode=mode))
     if cfg.post_norm:
         h = rmsnorm(p["pn2"], h)
-    return x + h
+    return shd.act(x + h)
 
 
 def block_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,
@@ -169,6 +321,40 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _layers_whole(stack):
+    """(work, commit): a stacked cache whose DTensor leaves shard their
+    layer axis (the reference's cache specs read a stacked (L, B, R) leaf
+    as (B, W, R) and may put L on a dp axis) gathered along it, so that
+    ``_index`` gives views a write lands in; ``commit()`` writes them
+    back.  Other leaves pass as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    back = []
+
+    def one(t):
+        if not (isinstance(t, DTensor) and Shard(0) in t.placements):
+            return t
+        w = t.redistribute(t.device_mesh, [
+            Replicate() if p == Shard(0) else p for p in t.placements])
+        back.append((t, w))
+        return w
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(walk(v) for v in t)
+        return one(t)
+
+    work = walk(stack)
+
+    def commit():
+        for t, w in back:
+            write_into(t, w)
+
+    return work, commit
 
 
 def _prefix_spec(cfg: ArchConfig) -> LayerSpec:
@@ -207,6 +393,28 @@ def model_init(key: Union[int, torch.Generator], cfg: ArchConfig, *,
     return p
 
 
+def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's raw spec tree (logical :data:`~.layers.TENSOR` /
+    :data:`~.layers.FSDP` roles) for :func:`model_init`'s parameters, leaf
+    for leaf; a stacked leaf's spec leads with ``None`` for its layer
+    axis."""
+    check_supported(cfg)
+    s: Dict[str, Any] = {}
+    if not cfg.audio_frontend:
+        s["embed"] = embed_specs()
+    if cfg.n_prefix:
+        s["prefix"] = block_specs(cfg, _prefix_spec(cfg))
+    s["stack"] = tuple(
+        map_specs(lambda sp: Spec((None,) + tuple(sp)), block_specs(cfg, ls))
+        for ls in cfg.period) if cfg.n_full_periods > 0 else ()
+    s["rem"] = tuple(block_specs(cfg, cfg.period[j % len(cfg.period)])
+                     for j in range(cfg.n_remainder))
+    s["final_norm"] = rmsnorm_specs()
+    if cfg.audio_frontend or not cfg.tie_embeddings:
+        s["head"] = dense_specs(in_axis=FSDP, out_axis=TENSOR)
+    return s
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype: torch.dtype = torch.bfloat16, device=None):
     """Decode/prefill cache tree mirroring the param layout (K/V, MLA's
@@ -240,17 +448,25 @@ def embed_input(params, cfg: ArchConfig,
 
 
 def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
-                mode: str = "train", cache=None,
-                cache_len: Optional[int] = None):
+                mode: str = "train", shd: Optional[ShardCtx] = None,
+                cache=None, cache_len: Optional[int] = None):
     """Returns (logits, cache).  mode="train_hidden" skips the unembed and
     returns the final hidden states (the chunked-loss path).  In prefill
     and decode mode the cache is updated in place and returned;
-    ``cache_len`` (a Python int) is the number of tokens already in it."""
+    ``cache_len`` (a Python int) is the number of tokens already in it.
+    ``shd``: the activation sharding (:class:`ShardCtx`; none by
+    default)."""
+    shd = shd or NO_SHARD
+    with shd.scope():
+        return _model_apply(params, cfg, batch, mode, shd, cache, cache_len)
+
+
+def _model_apply(params, cfg, batch, mode, shd, cache, cache_len):
     check_supported(cfg)
     return_hidden = mode == "train_hidden"
     if return_hidden:
         mode = "train"
-    x = embed_input(params, cfg, batch)
+    x = shd.act(embed_input(params, cfg, batch))
     S = x.shape[1]
     if mode == "decode":
         positions = torch.full((1,), cache_len, dtype=torch.int64,
@@ -258,16 +474,18 @@ def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     else:
         positions = torch.arange(S, device=x.device)
     kw = dict(positions=positions, ctx=batch.get("image_embeds"),
-              cache_len=cache_len, mode=mode)
+              cache_len=cache_len, mode=mode, shd=shd)
 
     if cfg.n_prefix:
         x = block_apply(params["prefix"], cfg, _prefix_spec(cfg), x,
                         cache=cache["prefix"] if cache is not None else None,
                         **kw)
+    stack, commit = (_layers_whole(cache["stack"]) if cache is not None
+                     else (None, None))
+
     def period(x, i):
         for j, lspec in enumerate(cfg.period):
-            cj = (_index(cache["stack"][j], i) if cache is not None
-                  else None)
+            cj = _index(stack[j], i) if cache is not None else None
             x = block_apply(_index(params["stack"][j], i), cfg, lspec, x,
                             cache=cj, **kw)
         return x
@@ -276,19 +494,21 @@ def model_apply(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     for i in range(cfg.n_full_periods):
         x = (checkpoint(period, x, i, use_reentrant=False) if remat
              else period(x, i))
+    if commit is not None:
+        commit()
     for j in range(cfg.n_remainder):
         lspec = cfg.period[j % len(cfg.period)]
         cj = cache["rem"][j] if cache is not None else None
         x = block_apply(params["rem"][j], cfg, lspec, x, cache=cj, **kw)
 
-    x = rmsnorm(params["final_norm"], x)
+    x = shd.whole_seq(rmsnorm(params["final_norm"], x))
     if return_hidden:
         return x, None                     # chunked-loss path: no logits here
     if "head" in params:
         logits = dense(params["head"], x)
     else:
         logits = unembed(params["embed"], x)
-    logits = softcap(logits.float(), cfg.logit_softcap)
+    logits = shd.logits(softcap(logits.float(), cfg.logit_softcap))
     if mode == "train":
         return logits, None
     return logits, cache

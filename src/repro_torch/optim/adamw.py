@@ -10,6 +10,13 @@ reference's, in its order: ``scale = min(1, clip / max(gnorm, 1e-12))``,
 the bias corrections ``1 - b**t`` in f32, ``u = (m / bc1) / (sqrt(v /
 bc2) + eps) + wd·p`` and ``p - lr·u`` in f32, cast to ``p``'s dtype.
 Nothing here reads a value back to the host.
+
+On DTensor parameters (a sharded train step) the moments take each
+parameter's placements (the reference's ``opt_specs = (P(), p_specs,
+p_specs)``), the gradients come laid out as the parameters, and the
+update runs on every rank's local shards; the global norm sums each
+shard's squares once (:func:`~.tree.counted_once`) and reduces the sum
+over the mesh.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Any, Iterator, NamedTuple, Tuple
 
 import torch
 
-from .tree import leaves, tree_map
+from .tree import counted_once, leaves, local, mesh_reduce, tree_map
 
 # elements a slice of a leaf's leading axis may hold in one update
 _SLICE = 1 << 24
@@ -29,12 +36,16 @@ class AdamWState(NamedTuple):
     v: Any
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros laid out as ``p`` (a DTensor's placements kept)."""
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
 def adamw_init(params) -> AdamWState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    zeros = tree_map(_zeros_f32, params)
     step = torch.zeros((), dtype=torch.int32,
-                       device=leaves(params)[0].device)
-    return AdamWState(step, zeros, tree_map(torch.clone, zeros))
+                       device=local(leaves(params)[0]).device)
+    return AdamWState(step, zeros, tree_map(_zeros_f32, params))
 
 
 def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
@@ -51,13 +62,20 @@ def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g²) in f32, a () tensor."""
+    """sqrt of the sum over leaves of sum(g²) in f32, a () tensor (on
+    DTensors: over every shard on the mesh, equal on every rank)."""
     total = None
-    for g in leaves(tree):
-        for (gs,) in _slices(g):
+    flat = leaves(tree)
+    for g in flat:
+        if not counted_once(g):
+            continue
+        for (gs,) in _slices(local(g)):
             s = torch.sum(torch.square(gs.float()))
             total = s if total is None else total + s
-    return torch.sqrt(total)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=local(flat[0]).device)
+    return torch.sqrt(mesh_reduce(total, flat[0]))
 
 
 @torch.no_grad()
@@ -78,6 +96,7 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
                                        device=t.device), t)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v)):
+        p, g, m, v = (local(t) for t in (p, g, m, v))
         for ps, gs, ms, vs in _slices(p, g, m, v):
             gf = gs.float() * scale
             ms.mul_(b1).add_(gf * (1.0 - b1))

@@ -50,7 +50,8 @@ MODULES = [
     "repro_torch.optim.adamw", "repro_torch.optim.compress",
     "repro_torch.optim.tree", "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpoint", "repro_torch.launch.steps",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.kernels._sharded",
+    "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
 ] + [f"repro_torch.configs.{a}" for a in (
     "deepseek_v2_lite_16b", "gemma2_2b", "hubert_xlarge", "internlm2_20b",
     "llama4_scout_17b_a16e", "llama_3_2_vision_11b", "qwen2_0_5b",

@@ -17,7 +17,8 @@
   ``tests/test_torch_attn_remat.py``.
 - The trainer (``launch/train.py`` with ``device="cpu"``): the reference's
   four integration tests (``tests/test_train_integration.py``), a forced
-  straggler applied once, the A19 refusals and the CLI.
+  straggler applied once, the refusal of a split one process cannot
+  hold, and the CLI.
 
 Tolerances, each with its reason:
 
@@ -242,10 +243,13 @@ def test_flash_attention_refuses_a_gradient():
 
 
 def test_steps_refuse_a_mesh_and_serve_without_grad():
+    """The steps take a ``DeviceMesh`` (the sharded steps are held in
+    ``tests/test_torch_sharded_ranks.py``) and refuse anything else as
+    one; without one they serve without grad."""
     tc = tconfigs.get_reduced("qwen2_0_5b")
     for make in (tsteps.make_train_step, tsteps.make_prefill_step,
                  tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A19"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make(tc, object())
     params = tt.model_init(0, tc, device="cpu")
     cache = tt.init_cache(tc, 2, 16, device="cpu")
@@ -331,8 +335,11 @@ def test_watchdog_and_throughput_format():
 
 
 def test_train_refuses_more_than_one_device():
+    """One process is a world of one rank: a model-parallel or pod split
+    of it is refused (a world of several ranks trains on a mesh:
+    ``tests/test_torch_sharded_ranks.py``)."""
     for kw in (dict(model_parallel=2), dict(pods=2)):
-        with pytest.raises(NotImplementedError, match="A19"):
+        with pytest.raises(ValueError, match="not divisible"):
             train("qwen2_0_5b", steps=1, device="cpu", **kw)
 
 
