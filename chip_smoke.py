@@ -123,7 +123,14 @@ each printing a line:
    gathered heaps bit-equal after every batch and equal to
    ``SequentialHeap``, the heap kernels' launches equal, every 20th mesh
    pass under ``one_fetch``; ``pc_sharded_priority_queue(placement=)``
-   under 8 threads x 200 ops, conservation and the heap property; (d)
+   under 8 threads x 200 ops through the leader path (mesh index 0
+   combines; its dispatch channel, a one-rank gloo group with
+   ``GLOO_SOCKET_IFNAME=lo`` unless set, sends one record a pass),
+   conservation and the heap property, then the leader's logged passes
+   replayed through a stacked twin of the same keys: answers and heaps
+   bit-equal, the heap kernels' launches equal, one record a pass, every
+   20th pass under ``one_fetch``, the channel's us a dispatch (the
+   leader's send; median, p99) printed beside the pass's host ms; (d)
    12 ``mixed_rounds`` lists of up to 8 rows through both PQ twins,
    bit-equal, no graph captured on the mesh twin; (f) one ``all_gather``
    of (4, 16) f32 and of (1, 10⁶) i32 and one ``all_reduce`` timed on a
@@ -140,7 +147,8 @@ each printing a line:
    on ``pq``, ``map`` and ``graph``, each request served once, on ``pq``
    under ``--faults standard`` too (a takeover rebuilds the placed
    deadline PQ on its group), ``decode`` with its deadline PQ placed, the
-   other structures refused.  ``python3
+   other structures refused — every run through the leader path and its
+   channels.  ``python3
    chip_smoke.py --placement`` runs phase 2 and this phase alone (the
    graph then built from numpy, :func:`tree_graph`).
 
@@ -5804,9 +5812,12 @@ def place_pq(torch, dev, seed, pl, init, cap, counters, n_batches, threads,
     engine = pc_sharded_priority_queue(cap, C_MAX, n_shards=PLACE_K,
                                        values=init, placement=pl,
                                        device=dev)
+    lead = engine.pq
+    passes, pass_s = lead_log(torch, dev, lead)
     before = {k: counters[k].launches for k in HEAP}
     ins_t, ext, seconds = drive(engine, threads, ops, seed)
     thr = _heap_delta(counters, before, HEAP)
+    sends = list(lead.channel.send_s)
     check(all(v is not None for v in ext),
           "placement pq threads: empty-queue extract")
     lhs = np.sort(np.concatenate([init, ins_t]))
@@ -5827,7 +5838,82 @@ def place_pq(torch, dev, seed, pl, init, cap, counters, n_batches, threads,
                       "passes": engine.passes,
                       "mean_batch": float(np.mean(engine.combined_sizes)),
                       "launches": thr}
+    out["leader"] = lead_replay(torch, dev, engine, passes, pass_s, sends,
+                                init, cap, counters, thr)
+    engine.close()
+    check(lead.channel.group is None and lead.comm.group is None,
+          "placement pq threads: close left the queue's groups open")
     return out
+
+
+def lead_log(torch, dev, pq):
+    """Log the leader's passes on ``pq`` — ``(ne, inserts, answers)`` and
+    each pass's host seconds — and its channel's records and send times;
+    every PLACE_FETCH_EVERY-th pass runs under :func:`one_fetch`."""
+    from repro_torch.core import batched_pq as bpq
+
+    ch = pq.channel
+    check(ch is not None and ch.is_leader,
+          "placement leader: the placed queue has no leader's channel")
+    ch.log, ch.send_s = [], []
+    passes, pass_s = [], []
+    real = pq.apply
+
+    def logged(ne, ins):
+        t0 = time.perf_counter()
+        if (dev.type == "cuda" and len(passes) % PLACE_FETCH_EVERY
+                == PLACE_FETCH_EVERY // 2):
+            got = one_fetch(torch, bpq, lambda: real(ne, ins))
+        else:
+            got = real(ne, ins)
+        pass_s.append(time.perf_counter() - t0)
+        passes.append((ne, list(ins), list(got)))
+        return got
+
+    pq.apply = logged
+    return passes, pass_s
+
+
+def lead_replay(torch, dev, engine, passes, pass_s, sends, init, cap,
+                counters, launches):
+    """The leader's logged passes through a stacked twin built from the
+    same keys: answers and heaps bit-equal, the heap kernels' launches
+    equal to the threaded run's; the channel sent one record a pass, in
+    the passes' order.  Returns the channel's and the passes' times."""
+    from repro_torch.core.sharded_pq import ShardedBatchedPQ
+
+    ch = engine.pq.channel
+    sent = [tuple(a) for n, a, _k in ch.log
+            if n == "ShardedBatchedPQ.apply"]
+    check(sent == [(ne, ins) for ne, ins, _o in passes]
+          and len(sends) == len(passes),
+          f"placement leader: {len(sent)} apply records and {len(sends)} "
+          f"sends for {len(passes)} passes")
+    t0 = time.perf_counter()
+    twin = ShardedBatchedPQ(cap, C_MAX, n_shards=PLACE_K, values=init,
+                            device=dev)
+    before = {k: counters[k].launches for k in HEAP}
+    for i, (ne, ins, got) in enumerate(passes):
+        want = twin.apply(ne, ins)
+        check(_bits_list(want) == _bits_list(got),
+              f"placement leader pass {i}: stacked {want} != leader {got}")
+    replayed = _heap_delta(counters, before, HEAP)
+    check(replayed == launches,
+          f"placement leader: stacked replay launches {replayed} != the "
+          f"leader's {launches}")
+    check(_heap_bits_equal(torch, twin.state, engine.pq.global_state()),
+          "placement leader: the leader's gathered heaps != the stacked "
+          "replay's")
+    us = np.array(sends) * 1e6
+    ms = np.array(pass_s) * 1e3
+    return {"passes": len(passes), "seconds": time.perf_counter() - t0,
+            "fetch_checked": len(range(PLACE_FETCH_EVERY // 2, len(passes),
+                                       PLACE_FETCH_EVERY))
+            if dev.type == "cuda" else 0,
+            "channel_us": (float(np.median(us)),
+                           float(np.percentile(us, 99))),
+            "pass_ms": (float(np.median(ms)), float(np.percentile(ms, 99))),
+            "launches": replayed}
 
 
 def place_rounds(torch, dev, seed, twins, n_lists):
@@ -6071,8 +6157,10 @@ def placement_phase(torch, dev, seed, counters, init, pq_cap, graph, *,
 
     t_phase = time.perf_counter()
     if dev.type == "cuda":
-        # the machine has no network: NCCL's bootstrap binds loopback
+        # the machine has no network: NCCL's bootstrap binds loopback, and
+        # so does gloo's (the dispatch channels' groups)
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     for f in counters.values():
         f.launches = 0
     pl = place_mesh(dev)
@@ -6086,7 +6174,8 @@ def placement_phase(torch, dev, seed, counters, init, pq_cap, graph, *,
     nccl = str(torch.cuda.nccl.version()) if dev.type == "cuda" else None
     out(f"placement mesh: {pl.describe()}, ranks {pl.ranks}, device "
         f"{pl.device}, backend {backend}, NCCL {nccl}, NCCL_SOCKET_IFNAME="
-        f"{os.environ.get('NCCL_SOCKET_IFNAME')}; a new group's first "
+        f"{os.environ.get('NCCL_SOCKET_IFNAME')}, GLOO_SOCKET_IFNAME="
+        f"{os.environ.get('GLOO_SOCKET_IFNAME')}; a new group's first "
         f"collective (its communicator's start-up) {start_s * 1e3:.3f} ms")
     res = {"describe": pl.describe(), "backend": backend, "nccl": nccl,
            "group_start_ms": start_s * 1e3}
@@ -6110,6 +6199,17 @@ def placement_phase(torch, dev, seed, counters, init, pq_cap, graph, *,
         f"{thr['passes']}, mean batch {thr['mean_batch']:.3f}, launches "
         f"{thr['launches']}, conservation and heap property ok "
         f"({time.perf_counter() - t0:.1f} s)")
+    ld = p["leader"]
+    out(f"placement leader: the threaded run's {ld['passes']} passes "
+        f"through the leader path, its channel running (one record a "
+        f"pass), replayed through a stacked twin of the same keys: "
+        f"answers and heaps bit-equal, heap launches {ld['launches']} "
+        f"equal; {ld['fetch_checked']} passes under one_fetch; channel "
+        f"us a dispatch (leader's send, host) median "
+        f"{ld['channel_us'][0]:.3f} p99 {ld['channel_us'][1]:.3f}; pass "
+        f"host ms median {ld['pass_ms'][0]:.3f} p99 "
+        f"{ld['pass_ms'][1]:.3f} (the replay and its checks "
+        f"{ld['seconds']:.1f} s)")
 
     t0 = time.perf_counter()
     r = place_rounds(torch, dev, seed, twins, round_lists)

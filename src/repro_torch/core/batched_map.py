@@ -65,7 +65,7 @@ from ..kernels.sorted_merge import merge_compact_sharded
 from . import substrate
 from .batched_pq import INF, _TINY, _device_get, _flush_subnormals
 from .faults import make_guard
-from .placement import STACKED, placed_device, resolve_placement
+from .placement import STACKED, led, placed_device, resolve_placement
 from .sharded_pq import _route, _route_host, host_key
 
 # All device→host transfers on the map hot path route through this hook
@@ -605,8 +605,10 @@ class ShardedMap(substrate.BatchedStructure):
         ``MeshPlacement`` (K % D == 0) keeps this rank's K / D rows on its
         device and runs the cross-shard steps as collectives over a
         process group of the map's own.  Every rank of the mesh builds
-        the same map and drives it with the same calls.  Anything else
-        raises ``TypeError``.
+        the same map; every rank then makes the same calls, or the leader
+        (mesh index 0) alone makes them and the others :meth:`follow`
+        them through the mesh's dispatch channel (``core.placement``).
+        Anything else raises ``TypeError``.
       device: ``None`` means the card (``"cuda"``) and raises without
         one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
 
@@ -671,7 +673,7 @@ class ShardedMap(substrate.BatchedStructure):
         if self._guard is None:
             return commit()
         return self._guard.run(commit, self._snapshot, self._restore,
-                               site=site)
+                               site=site, channel=self.channel)
 
     def _init_state(self, items) -> MapState:
         K, cap = self.n_shards, self.capacity
@@ -707,6 +709,7 @@ class ShardedMap(substrate.BatchedStructure):
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in self.placement.put((keys, vals, size), K)))
 
+    @led
     def global_state(self) -> MapState:
         """The (K, capacity + 1) tables and (K,) sizes: the live state
         when stacked, an all-gather of every rank's rows under a mesh
@@ -716,6 +719,7 @@ class ShardedMap(substrate.BatchedStructure):
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
+    @led
     def __len__(self) -> int:
         return int(self._comm.sum(self.state.size.sum()))
 
@@ -744,6 +748,7 @@ class ShardedMap(substrate.BatchedStructure):
         self._sizes_ub = ub
 
     # -- updates --------------------------------------------------------------
+    @led
     def update_batch_async(self, methods: Sequence[str],
                            inputs: Sequence[Any]) -> AsyncMapUpdate:
         """Apply a combined MIXED update batch, arrival order preserved.
@@ -782,11 +787,18 @@ class ShardedMap(substrate.BatchedStructure):
         """Fetch (once) the masks of EVERY unresolved update handle plus
         ``extra`` and the exact shard sizes, then resolve in dispatch
         order — one combined fetch is exactly the budgeted sync."""
-        todo = list(self._unresolved)
-        if handle is not None and handle not in todo:
-            todo = []                          # already resolved
-        if not todo and extra is None:
+        if handle is not None and handle not in self._unresolved:
+            return None                        # already resolved
+        if not self._unresolved and extra is None:
             return None
+        return self._fetch_through(extra)
+
+    @led(send_args=False)
+    def _fetch_through(self, extra=None):
+        """The one fetch of :meth:`_resolve_through`: every unresolved
+        handle's masks, the gathered sizes and ``extra`` (a follower
+        replays it bare, resolving its own handles and mirror alike)."""
+        todo = list(self._unresolved)
         fetched = _host_fetch(([h.masks for h in todo],
                                self._comm.gather(self.state.size), extra))
         for h, masks_h in zip(todo, fetched[0]):
@@ -807,6 +819,7 @@ class ShardedMap(substrate.BatchedStructure):
         return self.update_batch(["delete"], [key])[0]
 
     # -- reads ----------------------------------------------------------------
+    @led
     def read_batch(self, methods: Sequence[str],
                    inputs: Sequence[Any]) -> List[Any]:
         """Answer a mixed read batch with ONE read pass and ONE blocking
@@ -834,6 +847,7 @@ class ShardedMap(substrate.BatchedStructure):
         return self.read_batch(["kth_smallest"], [k])[0]
 
     # -- mixed update+read megapass (DESIGN.md §17) ---------------------------
+    @led
     def mixed_rounds(self, rounds):
         """R heterogeneous update/read rounds as one dispatch: every
         round's rows run back to back with no host sync between them, and

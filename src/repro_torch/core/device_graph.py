@@ -57,7 +57,7 @@ from ..kernels.label_prop import propagate, propagate_collective
 from . import substrate
 from .batched_pq import _device_get
 from .faults import make_guard
-from .placement import STACKED, placed_device, resolve_placement
+from .placement import STACKED, led, placed_device, resolve_placement
 
 # All device→host transfers on the graph hot path route through this hook
 # so tests can count blocking syncs (same idiom as batched_pq._host_fetch).
@@ -443,8 +443,10 @@ class DeviceGraph(substrate.BatchedStructure):
         the label tables (bit-equal: the component-min labelling is
         unique).  Updates and the contracted-graph merge stay replicated
         (``GraphState`` has no K axis to place); anything else raises
-        ``TypeError``.  Every rank of the mesh builds the same graph and
-        drives it with the same calls.
+        ``TypeError``.  Every rank of the mesh builds the same graph;
+        every rank then makes the same calls, or the leader (mesh index
+        0) alone makes them and the others :meth:`follow` them through
+        the mesh's dispatch channel (``core.placement``).
       device: ``None`` means the card (``"cuda"``) and raises without
         one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
     """
@@ -540,8 +542,9 @@ class DeviceGraph(substrate.BatchedStructure):
         if self._guard is None:
             return commit()
         return self._guard.run(commit, self._snapshot, self._restore,
-                               site=site)
+                               site=site, channel=self.channel)
 
+    @led
     def __len__(self) -> int:
         """Live edge count (exact: resolves any outstanding updates)."""
         self._resolve_through(None)
@@ -561,6 +564,7 @@ class DeviceGraph(substrate.BatchedStructure):
             raise ValueError("vertex id out of range")
         return arr.astype(np.int32)
 
+    @led
     def update_batch_async(self, methods: Sequence[str],
                            inputs: Sequence[Any]) -> AsyncUpdateResult:
         """Apply a combined MIXED update batch, arrival order preserved.
@@ -621,11 +625,17 @@ class DeviceGraph(substrate.BatchedStructure):
                          extra=None):
         """Fetch (once) the masks of EVERY unresolved update handle plus
         ``extra``, then apply them to the mirrors in dispatch order."""
-        todo = list(self._unresolved)
-        if handle is not None and handle not in todo:
-            todo = []                      # already resolved
-        if not todo and extra is None:
+        if handle is not None and handle not in self._unresolved:
+            return None                    # already resolved
+        if not self._unresolved and extra is None:
             return None
+        return self._fetch_through(extra)
+
+    @led(send_args=False)
+    def _fetch_through(self, extra=None):
+        """The one fetch of :meth:`_resolve_through` (a follower replays
+        it bare: its own handles resolve, its mirrors move alike)."""
+        todo = list(self._unresolved)
         fetched = _host_fetch(([h.masks for h in todo], extra))
         for h, masks_h in zip(todo, fetched[0]):
             h._resolve(masks_h)
@@ -651,6 +661,7 @@ class DeviceGraph(substrate.BatchedStructure):
         return self.delete_batch([(u, v)])[0]
 
     # -- reads ---------------------------------------------------------------
+    @led
     def connected_batch(self, pairs: Sequence[Tuple[int, int]]) -> List[bool]:
         """Answer a batch of connectivity queries with ONE blocking fetch:
         the refresh+gather read pass when an update ran since the last
@@ -682,6 +693,7 @@ class DeviceGraph(substrate.BatchedStructure):
     def connected(self, u: int, v: int) -> bool:
         return self.connected_batch([(u, v)])[0]
 
+    @led
     def read_batch(self, methods: Sequence[str],
                    inputs: Sequence[Any]) -> List[Any]:
         if any(m != "connected" for m in methods):
@@ -689,6 +701,7 @@ class DeviceGraph(substrate.BatchedStructure):
         return self.connected_batch(inputs)
 
     # -- megapass (DESIGN.md §17) --------------------------------------------
+    @led
     def mixed_rounds(self, rounds):
         """R heterogeneous update/read rounds as one dispatch: every
         round's rows run back to back with no host sync between them, and

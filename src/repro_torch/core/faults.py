@@ -282,7 +282,8 @@ class DispatchGuard:
         self.counters = plan.counters if plan is not None else FaultCounters()
 
     def run(self, thunk: Callable[[], object], snapshot: Callable[[], object],
-            restore: Callable[[object], None], *, site: str = ""):
+            restore: Callable[[object], None], *, site: str = "",
+            channel=None):
         """Run ``thunk`` transactionally; returns its value.
 
         ``snapshot()`` must capture everything ``thunk`` mutates (device
@@ -291,13 +292,25 @@ class DispatchGuard:
         from the occupancy guards) are *not* retried — they restore and
         re-raise immediately, because retrying a refused batch can never
         succeed.
+
+        ``channel``: a led structure's dispatch channel
+        (``core.placement``).  The leader sends each attempt's outcome on
+        it; a follower runs the attempt, takes the leader's outcome
+        instead of asking the plan, and restores and retries exactly
+        where the leader did.
         """
+        leader = channel is not None and channel.is_leader
         attempt = 0
         while True:
             snap = snapshot()
             try:
                 out = thunk()
-                if self.plan is not None:
+                if channel is not None and not leader:
+                    if not channel.verdict():
+                        raise InjectedDispatchError(
+                            f"the leader's dispatch failed at "
+                            f"{site or 'device'}")
+                elif self.plan is not None:
                     self.plan.maybe_fail_dispatch(site)
             except ValueError:
                 # deterministic refusal (capacity/occupancy guard):
@@ -306,7 +319,12 @@ class DispatchGuard:
                 restore(snap)
                 self.counters.bump("restores")
                 raise
-            except Exception:
+            except Exception as exc:
+                if leader:
+                    channel.verdict(False)
+                elif channel is not None and not isinstance(
+                        exc, InjectedDispatchError):
+                    raise            # not the leader's failure: diverged
                 restore(snap)
                 self.counters.bump("restores")
                 if self.breaker is not None:
@@ -320,6 +338,8 @@ class DispatchGuard:
                 if delay > 0:
                     self._sleep(delay)
                 continue
+            if leader:
+                channel.verdict(True)
             if self.breaker is not None:
                 self.breaker.record_success()
             return out

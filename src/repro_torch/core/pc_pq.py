@@ -37,7 +37,7 @@ from .combining import (ALL_TIERS, TIER_DEVICE, TIER_ELIMINATE, TIER_HOST,
                         CostModel,
                         ParallelCombiner, Request, Status, TierRouter,
                         eliminate_pq_pairs, track_pq_batch)
-from .placement import require_one_rank
+from .placement import resolve_placement
 from .seq_pq import SequentialHeap
 from .sharded_pq import ShardedBatchedPQ, host_key
 
@@ -501,11 +501,37 @@ def pc_adaptive_priority_queue(pq: AnyBatchedPQ, *, tier: str = "auto",
     return engine
 
 
+class FollowerPQ:
+    """A follower rank's side of :func:`pc_sharded_priority_queue` on a
+    mesh (DESIGN.md §18): the rank's K / D rows of the queue, which the
+    leader's combiner drives.  :meth:`follow` blocks,
+    replaying the leader's passes on the rows in the leader's order,
+    until the leader's engine closes the queue.  No client runs here."""
+
+    def __init__(self, pq: ShardedBatchedPQ):
+        self.pq = pq
+
+    def follow(self) -> ShardedBatchedPQ:
+        self.pq = self.pq.follow()
+        return self.pq
+
+    def execute(self, method: str, input=None):
+        leader = self.pq.placement.ranks[0]
+        raise RuntimeError(
+            f"{method!r} on a follower (mesh index "
+            f"{self.pq.placement.index}): the combiner runs on the leader, "
+            f"mesh index 0 (rank {leader}); submit there")
+
+    def close(self) -> None:
+        """Nothing to close here: the leader's close ends :meth:`follow`
+        and releases this rank's groups."""
+
+
 def pc_sharded_priority_queue(capacity: int, c_max: int,
                               n_shards: int = 4, values=None,
                               donate: bool = True, fault_plan=None,
                               guard=None, placement=None, device=None,
-                              **kw) -> ParallelCombiner:
+                              **kw) -> Union[ParallelCombiner, FollowerPQ]:
     """Parallel combining over the K-sharded batched heap (DESIGN.md §9).
 
     Same combiner protocol as :func:`pc_priority_queue` — the combined
@@ -515,18 +541,27 @@ def pc_sharded_priority_queue(capacity: int, c_max: int,
     DESIGN.md §15 fault-tolerance layer through both the queue
     (transactional dispatch) and the combining engine (lease takeover,
     injected kills).  ``placement`` selects the shard layout (DESIGN.md
-    §18): None/stacked, or a ``MeshPlacement`` of one rank (the threaded
-    combiner runs on one rank; a larger mesh raises ROADMAP A24's
-    ``NotImplementedError``).  ``device=None`` means the card.
+    §18): None/stacked, or a ``MeshPlacement`` of D ranks.  On a mesh
+    every rank calls this, with the same arguments: the leader (mesh
+    index 0) gets the ``ParallelCombiner`` — its clients, its combiner,
+    and ``close()``, which ends the followers — and every other rank a
+    :class:`FollowerPQ`, whose ``follow()`` replays the leader's passes
+    on its rows.  Combiner kills and lease takeovers are the leader's
+    alone: they rebuild nothing (a kill fires before the pass reads a
+    request).  ``device=None`` means the card.
     """
-    require_one_rank(placement, "pc_sharded_priority_queue")
     if fault_plan is not None:
         kw.setdefault("fault_plan", fault_plan)
-    return pc_priority_queue(
-        ShardedBatchedPQ(capacity, c_max=c_max, n_shards=n_shards,
-                         values=values, donate=donate,
-                         fault_plan=fault_plan, guard=guard,
-                         placement=placement, device=device), **kw)
+    pq = ShardedBatchedPQ(capacity, c_max=c_max, n_shards=n_shards,
+                          values=values, donate=donate,
+                          fault_plan=fault_plan, guard=guard,
+                          placement=placement, device=device)
+    pl = resolve_placement(placement)
+    if pl.is_mesh and not pl.is_leader:
+        return FollowerPQ(pq)
+    engine = pc_priority_queue(pq, **kw)
+    engine.close = pq.close
+    return engine
 
 
 def pc_megapass_priority_queue(capacity: int, c_max: int,

@@ -32,7 +32,9 @@ bit), an all-gather of the extract rows for the answer, and an
 all-reduce of the sizes for ``k_eff``.  Routing, the occupancy mirror and
 the merges run replicated on every rank.  The passes take the
 placement's collectives as ``comm``; the stacked ones are identities, so
-the stacked pass is unchanged.
+the stacked pass is unchanged.  Every public call that reaches the rows
+runs through the mesh's dispatch channel (``core.placement.led``), so a
+threaded combiner on the leader rank drives the followers' rows too.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from ..kernels.heap_kmin import k_smallest_sharded
 from . import batched_pq as _bpq
 from . import substrate
 from .faults import make_guard
-from .placement import STACKED, placed_device, resolve_placement
+from .placement import REBUILD, STACKED, led, placed_device, resolve_placement
 from .batched_pq import (
     INF,
     _TINY,
@@ -424,15 +426,19 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         ``MeshPlacement`` (K % D == 0) keeps this rank's K / D rows on its
         device and runs the passes' merges as collectives over a process
         group of the structure's own.  Every rank of the mesh builds the
-        same queue and drives it with the same calls; the occupancy
-        mirror, snapshots and restores work on each rank's rows as they
-        do stacked, and a rounds dispatch runs its rows eagerly (no CUDA
-        graph captures a collective).  Anything else raises
-        ``TypeError``.
+        same queue; then either every rank makes the same calls (SPMD),
+        or the leader (mesh index 0) alone makes them and the other ranks
+        :meth:`follow` — each call is sent on the placement's dispatch
+        channel before it runs, and a guarded dispatch's outcome after
+        (``core.placement``).  The occupancy mirror, snapshots and
+        restores work on each rank's rows as they do stacked, and a
+        rounds dispatch runs its rows eagerly (no CUDA graph captures a
+        collective).  Anything else raises ``TypeError``.
       comm: the placement's collectives to run on — a queue that
         replaces another on the same placement passes the old one's
-        :attr:`comm`, so no communicator is started again; ``None``
-        takes a process group of the queue's own.
+        :attr:`comm`, so no communicator is started again, and the
+        followers of the old queue rebuild theirs (:meth:`rebuilt`);
+        ``None`` takes a process group of the queue's own.
       device: ``None`` means the card (``"cuda"``) and raises without
         one; the tests pass ``"cpu"``.  Under a mesh, the rank's device.
 
@@ -495,7 +501,21 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         self.graph_replays = 0
         self._graphs = {}
         self._comm = comm if comm is not None else self.placement.comm()
-        self.state = self._init_state(values)
+        rebuild = dict(capacity=capacity, c_max=c_max, n_shards=n_shards,
+                       values=values, key_range=key_range, donate=donate)
+        if comm is not None and comm.channel is not None:
+            with comm.channel.record(REBUILD, (), rebuild):
+                self.state = self._init_state(values)
+        else:
+            self.state = self._init_state(values)
+
+    def rebuilt(self, **kw) -> "ShardedBatchedPQ":
+        """A follower's replay of the leader's rebuild: a fresh queue of
+        the leader's arguments ``kw`` on this queue's comm, guard,
+        placement and device."""
+        return ShardedBatchedPQ(fault_plan=self.fault_plan, guard=self._guard,
+                                placement=self.placement, comm=self._comm,
+                                device=self.device, **kw)
 
     @property
     def comm(self):
@@ -537,12 +557,14 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         a, size = self.placement.put((a, size), K)   # this rank's rows
         return state_from_numpy(a, size, self.device)
 
+    @led
     def global_state(self) -> ShardedHeapState:
         """The (K, capacity) heap stack and (K,) sizes: the live state when
         stacked, an all-gather of every rank's rows under a mesh (every
         rank calls it)."""
         return self.placement.gather(self.state, self._comm)
 
+    @led
     def __len__(self) -> int:
         return int(self._comm.sum(self.state.size.sum()))
 
@@ -595,10 +617,16 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         self.state.a.copy_(st.a)
         self.state.size.copy_(st.size)
 
+    @led(send_args=False, replay="_follow_sizes")
     def _fetch_sizes(self):
         # a copy taken at consumption time: later passes mutate size in
         # place (under a mesh, all K sizes gathered from the ranks)
         return self._comm.gather(self.state.size.clone())
+
+    def _follow_sizes(self) -> None:
+        """A follower's side of the leader's consumed fetch: the same
+        gather of the sizes, and the same refresh of the mirror."""
+        self._refresh_sizes(self._fetch_sizes().cpu().numpy())
 
     def _step(self, ne, buf, ni):
         def thunk():
@@ -617,8 +645,9 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         if self._guard is None:
             return thunk()
         return self._guard.run(thunk, self._snapshot, self._restore,
-                               site="pq.apply_batch")
+                               site="pq.apply_batch", channel=self.channel)
 
+    @led
     def apply_async(self, extracts: int, inserts) -> AsyncBatchResult:
         """Apply a combined batch; extracted values stay on the device
         until ``.result()`` — one blocking host sync per call, not per
@@ -641,6 +670,7 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             self._step, self.c_max, extracts, inserts,
             extra=self._fetch_sizes, on_fetch=self._refresh_sizes)
 
+    @led
     def apply(self, extracts: int, inserts) -> list:
         """Apply a combined batch; returns extracted values (None-padded)."""
         return self.apply_async(extracts, inserts).result()
@@ -725,7 +755,7 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
 
         if self._guard is not None:
             outs = self._guard.run(commit, self._snapshot, self._restore,
-                                   site=site)
+                                   site=site, channel=self.channel)
         else:
             saved = (self._sizes_ub.copy(), self._total)
             try:
@@ -736,6 +766,7 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
         return _RoundsFetch(outs, extra=self._fetch_sizes,
                             on_fetch=self._refresh_sizes)
 
+    @led
     def apply_rounds_async(self, rounds) -> list:
         """Apply R sequential combined batches back to back (DESIGN.md
         §12): the rounds are lowered onto ≤ c_max update rows and
@@ -752,11 +783,13 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             site="pq.apply_rounds")
         return [RoundResult(sn, ri, shared) for sn, ri in layout]
 
+    @led
     def apply_rounds(self, rounds) -> list:
         """Blocking :meth:`apply_rounds_async`: per-round answer lists."""
         return [h.result() for h in self.apply_rounds_async(rounds)]
 
     # -- fused mixed update+read megapass (DESIGN.md §17) --------------------
+    @led
     def mixed_rounds(self, rounds):
         """R heterogeneous update/``peek_min`` rounds as ONE dispatch of
         packed rows (one graph replay on the card).  Update rounds lower
@@ -835,12 +868,14 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             return _PQBatchHandle(None, plan[3])
         return _PQPeekRound(None, 0, 0)
 
+    @led
     def values(self) -> list:
         a, sizes = to_numpy(self.global_state())
         return np.sort(np.concatenate(
             [a[k, 1:sizes[k] + 1] for k in range(self.n_shards)])).tolist()
 
     # -- BatchedStructure protocol surface (DESIGN.md §16) --------------------
+    @led
     def update_batch_async(self, methods: Sequence[str],
                            inputs: Sequence[Any]) -> _PQBatchHandle:
         """Protocol adapter: a mixed insert/extract_min op list becomes
@@ -859,6 +894,7 @@ class ShardedBatchedPQ(substrate.BatchedStructure):
             return _PQBatchHandle(None, list(methods))
         return _PQBatchHandle(self.apply_async(ne, ins), list(methods))
 
+    @led
     def read_batch(self, methods: Sequence[str],
                    inputs: Sequence[Any]) -> List[Any]:
         """Answer ``values`` / ``peek_min`` reads with ONE blocking fetch

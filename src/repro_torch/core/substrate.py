@@ -30,6 +30,8 @@ import importlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
+from .placement import led
+
 
 class BatchedStructure:
     """Protocol base for device-resident parallel batched structures.
@@ -54,6 +56,13 @@ class BatchedStructure:
       device state + host mirrors; never donated, so a
       :class:`~repro_torch.core.faults.DispatchGuard` can restore after the
       failed pass consumed the live buffers (DESIGN.md §15).
+
+    A placed structure (``supports_placement``) keeps its collectives in
+    ``_comm``; on a mesh they carry a dispatch channel
+    (``core.placement``), and the calls that reach the rows are wrapped
+    in :func:`~repro_torch.core.placement.led` — ``update_batch`` and
+    ``apply`` here among them.  :meth:`follow` is a follower rank's side
+    of them, :meth:`close` releases the groups (and ends the followers).
     """
 
     structure: str = ""                       # registry name
@@ -92,11 +101,13 @@ class BatchedStructure:
         raise NotImplementedError
 
     # -- derived (shared by every implementation) ----------------------------
+    @led
     def update_batch(self, methods: Sequence[str],
                      inputs: Sequence[Any]) -> List[Any]:
         """Blocking ``update_batch_async`` (one fetch, at return)."""
         return self.update_batch_async(methods, inputs).result()
 
+    @led
     def apply(self, method: str, input: Any = None) -> Any:
         """Generic single-op entry (Lock/FC wrappers, fuzz loops)."""
         if method in self.read_only:
@@ -120,6 +131,35 @@ class BatchedStructure:
     @classmethod
     def is_read(cls, method: str) -> bool:
         return method in cls.read_only
+
+    # -- leader and followers on a mesh (DESIGN.md §18) ----------------------
+    @property
+    def channel(self):
+        """The mesh's dispatch channel of a placed structure; ``None``
+        when stacked."""
+        return getattr(self.__dict__.get("_comm"), "channel", None)
+
+    def follow(self):
+        """A follower rank's side of a placed structure: replay the
+        leader's calls on this rank's rows until the leader closes it.
+        Returns the structure followed last (a leader that rebuilds its
+        structure on the same comm rebuilds the followers' too)."""
+        if self.channel is None:
+            raise RuntimeError(f"{type(self).__name__} is not placed on a "
+                               f"mesh: there is no leader to follow")
+        return self.channel.follow(self)
+
+    def close(self) -> None:
+        """Release a placed structure's process groups (every rank, once:
+        the leader's close ends its followers' :meth:`follow`).  Nothing
+        to do when stacked, or closed already."""
+        comm = self.__dict__.get("_comm")
+        if comm is not None and getattr(comm, "group", None) is not None:
+            self._close()
+
+    @led
+    def _close(self) -> None:
+        self._comm.close()
 
     def mixed_rounds(self, rounds: Sequence[Tuple[str, Sequence[str],
                                                   Sequence[Any]]]):

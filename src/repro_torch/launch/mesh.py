@@ -52,6 +52,27 @@ def _ensure_world(device=None) -> int:
     return dist.get_world_size()
 
 
+def world_from_env(dev):
+    """(the world size, this rank's device): the default process group,
+    started from torchrun's environment (``WORLD_SIZE``; NCCL on the
+    card, gloo on the CPU) when it is not yet initialized and the
+    environment names more than one rank; a rank's card is
+    ``cuda:LOCAL_RANK``."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return 1, dev
+        dist.init_process_group(_backend(dev.type))
+    world = dist.get_world_size()
+    if dev.type == "cuda" and world > 1:
+        dev = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
+        torch.cuda.set_device(dev)
+    return world, dev
+
+
 def _mesh(device_type: str, ranks, names):
     from torch.distributed.device_mesh import DeviceMesh
 

@@ -22,9 +22,10 @@ Differences from the reference:
   device decides — so no ``use_pallas`` reaches ``spec.make``, and
   ``run_serving`` has no ``graph_use_pallas``.
 * ``--mesh-shards`` / ``mesh_shards`` build the mesh on
-  ``torch.distributed`` (``launch/mesh.py``); the scheduler combines on
-  one rank, so a mesh of more than one rank raises
-  ``NotImplementedError`` (ROADMAP A24).
+  ``torch.distributed`` (``launch/mesh.py``), one process a rank: under
+  torchrun every rank runs the command, the leader (mesh index 0) serves
+  and the others follow its dispatches on their rows (the reference runs
+  one controller over every device).
 * The decode workload keeps ``configs.get_reduced(arch_id)`` and ``seed``,
   but the port draws its weights from a ``torch.Generator``, so its tokens
   equal the reference's only when the weights are carried across
@@ -38,6 +39,8 @@ Usage (CPU, reduced config):
   python -m repro_torch.launch.serve --device cpu --sessions 8 --requests 4
   python -m repro_torch.launch.serve --device cpu --workload pq \\
       --scheduler pc-async
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \\
+      --workload pq --scheduler pc-async --mesh-shards 4
 """
 from __future__ import annotations
 
@@ -53,10 +56,10 @@ from .. import configs
 from ..core import substrate
 from ..core.batched_pq import resolve_device
 from ..core.faults import FaultPlan
-from ..core.placement import MeshPlacement, require_one_rank
+from ..core.placement import MeshPlacement
 from ..models import lm, transformer
 from ..serving import PCScheduler, SerialScheduler
-from .mesh import make_combining_mesh
+from .mesh import make_combining_mesh, world_from_env
 
 
 class DecodeExecutor:
@@ -277,9 +280,13 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
     (a structure without the registry's placement marker raises
     ``ValueError``; ``decode`` places the deadline PQ alone) and the PC
     scheduler's deadline PQ.
-    The combiner runs on one rank: a mesh of more than one rank raises
-    ``NotImplementedError`` (ROADMAP A24).  ``stats["placement"]`` names
-    the layout.
+    Every rank of the mesh calls this, with the same arguments: the
+    leader (mesh index 0) runs the sessions, the scheduler and the
+    executor, and every other rank follows the leader's dispatches on
+    its rows of the workload structure and of the deadline PQ, one
+    thread each (the decode model runs on the leader alone).  Every rank
+    returns the leader's stats; ``stats["placement"]`` names the layout
+    and ``stats["mesh_devices"]`` is D.
 
     ``fault_plan``: optional deterministic :class:`FaultPlan`
     (DESIGN.md §15) shared between the workload structure (transactional
@@ -305,7 +312,7 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
                 "(no placement= constructor knob)")
         mesh_pl = MeshPlacement(make_combining_mesh(mesh_shards,
                                                     device=device))
-        require_one_rank(mesh_pl, "run_serving(mesh_shards=)")
+    follower = mesh_pl is not None and not mesh_pl.is_leader
     if workload != "decode" and substrate.try_get(workload) is not None:
         spec = substrate.get(workload)
         if not spec.serve:
@@ -326,9 +333,11 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
                                        serve_kw)
     elif workload == "decode":
         cfg = configs.get_reduced(arch_id)
-        ex = DecodeExecutor(cfg, max_batch=max_batch,
-                            max_len=prompt_len + n_tokens + 1, seed=seed,
-                            device=device)
+        # the model runs on the leader alone (only the deadline PQ is
+        # placed, as in the reference)
+        ex = None if follower else DecodeExecutor(
+            cfg, max_batch=max_batch, max_len=prompt_len + n_tokens + 1,
+            seed=seed, device=device)
         prompts = rng.integers(2, cfg.vocab,
                                (sessions, requests_per_session,
                                 prompt_len)).astype(np.int32)
@@ -351,6 +360,9 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
         sch = SerialScheduler(ex)
     else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
+    placed = getattr(ex, "ds", None) if mesh_pl is not None else None
+    if follower:
+        return _follow(mesh_pl, placed, sch)
 
     results: Dict[int, list] = {}
     errors: List[BaseException] = []
@@ -380,7 +392,11 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
     wall = time.time() - t0
     if isinstance(sch, PCScheduler):
         sch.close()
+    if placed is not None:
+        placed.close()
     if errors:
+        if mesh_pl is not None:
+            _share(mesh_pl, ("error", repr(errors[0])))
         raise errors[0]
 
     total_reqs = sessions * requests_per_session
@@ -412,7 +428,52 @@ def run_serving(arch_id: str = "qwen2_0_5b", *, sessions: int = 8,
         if isinstance(sch, PCScheduler):
             faults.update(sch.fault_counters())
         stats["faults"] = faults
+    if mesh_pl is not None:
+        _share(mesh_pl, ("ok", stats))
     return stats
+
+
+def _share(mesh_pl: MeshPlacement, outcome):
+    """The leader's ``("ok", stats)`` or ``("error", text)``, broadcast to
+    every rank of the mesh over its group; returns the leader's stats on
+    every rank, and raises on a follower where the leader failed."""
+    import torch.distributed as dist
+
+    box = [outcome]
+    dist.broadcast_object_list(box, src=mesh_pl.ranks[0],
+                               group=mesh_pl.mesh.get_group("shard"),
+                               device=mesh_pl.device)
+    kind, val = box[0]
+    if kind != "ok":
+        raise RuntimeError(f"the leader (mesh index 0) failed: {val}")
+    return val
+
+
+def _follow(mesh_pl: MeshPlacement, placed, sch) -> Dict[str, Any]:
+    """A follower rank's run: one thread follows the workload structure,
+    one the scheduler's deadline PQ, until the leader closes them; then
+    the leader's stats."""
+    followers = []
+    if placed is not None:
+        followers.append(placed.follow)
+    if isinstance(sch, PCScheduler):
+        followers.append(sch.follow)
+    errors: List[BaseException] = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as exc:     # re-raised after every join
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(f,)) for f in followers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return _share(mesh_pl, None)
 
 
 def build_fault_plan(args) -> Optional[FaultPlan]:
@@ -486,7 +547,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """The CLI.  Under torchrun (``WORLD_SIZE`` > 1) it starts the default
+    group from the environment, each rank on its own card; only rank 0
+    (the mesh's leader) prints."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
+    world_from_env(resolve_device(args.device))
     stats = run_serving(args.arch, sessions=args.sessions,
                         requests_per_session=args.requests,
                         n_tokens=args.tokens, max_batch=args.max_batch,
@@ -497,7 +564,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                         mesh_shards=args.mesh_shards,
                         fault_plan=build_fault_plan(args),
                         device=args.device)
-    print("[serve]", stats)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("[serve]", stats)
     return stats
 
 

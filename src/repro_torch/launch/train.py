@@ -36,9 +36,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -49,7 +48,7 @@ from ..core.batched_pq import resolve_device
 from ..data import make_pipeline
 from ..models import transformer
 from ..optim import adamw_init
-from .mesh import make_mesh_for_world
+from .mesh import make_mesh_for_world, world_from_env
 from .steps import make_train_step
 
 
@@ -68,25 +67,6 @@ class StragglerWatchdog:
             return False
         med = float(np.median(self.times[-50:]))
         return dt > self.factor * med
-
-
-def _world(dev: torch.device) -> Tuple[int, torch.device]:
-    """(the number of ranks training, this rank's device): the default
-    process group's world, started from torchrun's environment
-    (``WORLD_SIZE``; NCCL on the card, gloo on the CPU) when it is not yet
-    initialized; a rank's card is ``cuda:LOCAL_RANK``."""
-    import torch.distributed as dist
-
-    if not dist.is_initialized():
-        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
-            return 1, dev
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    world = dist.get_world_size()
-    if dev.type == "cuda" and world > 1:
-        dev = torch.device("cuda", int(os.environ.get(
-            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
-        torch.cuda.set_device(dev)
-    return world, dev
 
 
 def device_batch(cfg, hb: Dict[str, np.ndarray], step: int, seed: int,
@@ -130,7 +110,7 @@ def train(arch_id: str, *, steps: int = 100, reduced: bool = True,
     ``tokens_per_s`` (batch·seq over it), ``losses`` (this run's, a step
     each) and ``world`` (its ranks).  ``fail_at_step`` simulates a crash
     (for the restart integration test)."""
-    world, dev = _world(resolve_device(device))
+    world, dev = world_from_env(resolve_device(device))
     cfg = configs.get_reduced(arch_id) if reduced else configs.get(arch_id)
     mesh = None
     if world > 1 or model_parallel * pods > 1:

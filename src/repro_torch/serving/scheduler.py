@@ -47,10 +47,12 @@ Differences from the reference's constructor:
 * ``pq_use_pallas`` is dropped: the port has no kernel knob.  On the card
   the deadline PQ always runs the hand-written kernels, on the CPU their
   plain versions.
-* ``pq_placement`` places the deadline PQ's shards (DESIGN.md §18): a
-  ``MeshPlacement`` of one rank works as in the reference; a larger mesh
-  raises ``NotImplementedError`` (ROADMAP A24: each rank's combiner would
-  form different batches).
+* ``pq_placement`` places the deadline PQ's shards (DESIGN.md §18) on a
+  ``MeshPlacement`` of D ranks, one process a rank (the reference runs
+  one controller over D devices).  Every rank builds the scheduler; the
+  leader (mesh index 0) runs the combiner, its clients and the device
+  step, and every other rank's scheduler is a follower: :meth:`follow`
+  replays the leader's passes on the rank's rows of the deadline PQ.
 * ``pq_donate`` becomes the port's ``donate=``: the PQ's pass updates the
   heap stack in place; False is the clone-per-pass twin.
 * ``device`` (``None`` means the card, and raises without one; the tests
@@ -73,7 +75,7 @@ from ..core.combining import (ALL_TIERS, TIER_DEVICE, TIER_ELIMINATE,
                               TIER_HOST, TierRouter)
 from ..core.faults import (CircuitBreaker, DispatchGuard, FaultPlan,
                            InjectedCombinerKill)
-from ..core.placement import require_one_rank
+from ..core.placement import resolve_placement
 from ..core.sharded_pq import ShardedBatchedPQ, host_key
 
 _SENTINEL = object()
@@ -142,8 +144,10 @@ class PCScheduler:
         None keeps the stacked default; a ``MeshPlacement`` places the K
         shards on its mesh and runs the passes' merges as collectives
         (``serve.py --mesh-shards``).  The combiner is one thread of one
-        rank, so a mesh of more than one rank raises
-        ``NotImplementedError`` (ROADMAP A24).
+        rank, the mesh's leader (index 0); on every other rank the
+        scheduler starts no thread, refuses submits, and :meth:`follow`
+        replays the leader's PQ passes (a takeover's rebuilt queue
+        included) until the leader's :meth:`close`.
       rounds_cap: cap R on the adaptive multi-round fused dispatch
         (DESIGN.md §12) — one ordering pass may choose up to
         ``rounds_cap · max_batch`` requests (eliminated + extracted) and
@@ -180,7 +184,10 @@ class PCScheduler:
                  router: Optional[TierRouter] = None,
                  fault_plan: Optional[FaultPlan] = None,
                  supervise: bool = True, device=None):
-        require_one_rank(pq_placement, "PCScheduler(pq_placement=)")
+        pl = resolve_placement(pq_placement)
+        # a follower rank replays the leader's passes (follow()) and runs
+        # no thread of its own
+        self.is_leader = not pl.is_mesh or pl.is_leader
         self.step_fn = step_fn
         self.max_batch = max_batch
         self.use_pq = use_pq
@@ -244,12 +251,14 @@ class PCScheduler:
         self._combiner = threading.Thread(
             target=self._combiner_loop, name="pc-combiner", daemon=True)
         self._device: Optional[threading.Thread] = None
+        self._supervisor: Optional[threading.Thread] = None
+        if not self.is_leader:
+            return
         if pipeline:
             self._device = threading.Thread(
                 target=self._device_loop, name="pc-device", daemon=True)
             self._device.start()
         self._combiner.start()
-        self._supervisor: Optional[threading.Thread] = None
         if supervise:
             self._supervisor = threading.Thread(
                 target=self._supervisor_loop, name="pc-supervisor",
@@ -271,6 +280,12 @@ class PCScheduler:
         defensively, if the combiner thread is no longer alive (a request
         must never enqueue onto a dead combiner loop, where its future
         could hang forever)."""
+        if not self.is_leader:
+            raise RuntimeError(
+                f"a follower scheduler (mesh index "
+                f"{self._pq.placement.index}) takes no request: submit to "
+                f"the leader, mesh index 0 (rank "
+                f"{self._pq.placement.ranks[0]})")
         if deadline != deadline:        # reject NaN at the client boundary
             raise ValueError("deadline must not be NaN")
         f: Future = Future()
@@ -290,6 +305,17 @@ class PCScheduler:
         """Blocking submit from a session thread; returns the output."""
         return self.submit_async(inputs, deadline).result()
 
+    def follow(self) -> None:
+        """A follower rank: replay the leader's deadline-PQ passes on this
+        rank's rows until the leader closes its scheduler (a queue the
+        leader rebuilt after a takeover is followed in turn)."""
+        if self.is_leader:
+            raise RuntimeError("the leader's scheduler runs the combiner; "
+                               "only a follower rank follows it")
+        if self.use_pq:
+            self._pq = self._pq.follow()
+        self._closed = True
+
     def close(self) -> None:
         """Drain outstanding requests, then stop the worker threads.
 
@@ -299,7 +325,12 @@ class PCScheduler:
         thread died) is failed with ``RuntimeError`` instead of leaving
         its caller hanging.  A concurrent second ``close`` waits for the
         shutdown to complete instead of returning early.  The first
-        ``close`` destroys a placed deadline PQ's process group."""
+        ``close`` closes a placed deadline PQ (its groups; on a mesh, the
+        close ends the followers' :meth:`follow`).  On a follower it only
+        marks the scheduler closed."""
+        if not self.is_leader:
+            self._closed = True
+            return
         with self._cond:
             first = not self._closed
             self._closed = True
@@ -343,7 +374,7 @@ class PCScheduler:
             _fail_future(ent.future, RuntimeError(
                 "scheduler closed before the request was served"))
         if first and self.use_pq:
-            self._pq.comm.close()      # a placed deadline PQ's group
+            self._pq.close()           # a placed deadline PQ's groups
 
     def __enter__(self) -> "PCScheduler":
         return self

@@ -14,8 +14,10 @@ and K = 8 over 4.
 - injected dispatch faults are restored with the rows still placed;
 - the constructor rejects K = 6 over 4 ranks; ``make_combining_mesh``'s
   largest-divisor rule; ``make_mesh_for_world``'s shapes and error;
-- a threaded front end raises under a mesh of more than one rank
-  (ROADMAP A24).
+- the threaded front ends run under a mesh of more than one rank: the
+  leader (mesh index 0) combines and serves, the other ranks follow its
+  dispatches (``tests/test_torch_combining_ranks.py`` holds them to the
+  JAX package).
 
 Every job has its own limit: a gloo timeout at init, and a join with a
 deadline that kills the ranks and fails the test, so a hung collective
@@ -207,26 +209,34 @@ def case_mesh_rules(world, k):
 
 
 def case_threaded(world, k):
-    """The threaded front ends combine on one rank: a mesh of more than
-    one raises NotImplementedError naming ROADMAP A24."""
+    """The threaded front ends on a mesh of every rank: the leader's
+    combiner, scheduler and sessions run, the other ranks follow."""
     from repro_torch.core.pc_pq import pc_sharded_priority_queue
     from repro_torch.launch import serve
     from repro_torch.serving import PCScheduler
 
     pl = _pl(k)
-    raised = []
-    for make in (lambda: pc_sharded_priority_queue(64, 4, n_shards=k,
-                                                   placement=pl),
-                 lambda: PCScheduler(lambda rows: rows, n_shards=k,
-                                     pq_placement=pl, device="cpu"),
-                 lambda: serve.run_serving(workload="pq", mesh_shards=k,
-                                           device="cpu")):
-        try:
-            make()
-            raised.append(None)
-        except NotImplementedError as e:
-            raised.append("A24" in str(e))
-    return {"raised": raised}
+    got = {"leader": pl.is_leader}
+    q = pc_sharded_priority_queue(64, 4, n_shards=k, values=[9.0],
+                                  placement=pl, device="cpu")
+    if pl.is_leader:
+        got["pq"] = [q.execute("insert", 3.0), q.execute("extract_min")]
+        q.close()
+    else:
+        q.follow()
+    # each front end is followed to its close before the next one's
+    # groups are made (every rank makes those, in the same order)
+    sch = PCScheduler(lambda rows: [r + 1 for r in rows], n_shards=k,
+                      pq_placement=pl, device="cpu")
+    if pl.is_leader:
+        got["sched"] = sch.submit_async(5, deadline=1.0).result(timeout=30)
+        sch.close()
+    else:
+        sch.follow()
+    got["serve"] = serve.run_serving(workload="pq", mesh_shards=k,
+                                     sessions=2, requests_per_session=2,
+                                     device="cpu")
+    return got
 
 
 def _cases(world, k):
@@ -381,6 +391,10 @@ def test_make_mesh_for_world_shapes_and_error(job):
     assert "not divisible by model=3" in res[0]["error"]
 
 
-def test_threaded_front_ends_refuse_a_larger_mesh(job):
-    _world, _k, res = _result(job, "threaded")
-    assert all(r["raised"] == [True, True, True] for r in res), res
+def test_threaded_front_ends_run_on_a_larger_mesh(job):
+    world, _k, res = _result(job, "threaded")
+    assert res[0]["leader"] and not any(r["leader"] for r in res[1:])
+    assert res[0]["pq"] == [None, 3.0] and res[0]["sched"] == 6
+    stats = res[0]["serve"]
+    assert stats["mesh_devices"] == world and stats["requests"] == 4
+    assert all(r["serve"] == stats for r in res)
