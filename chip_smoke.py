@@ -350,13 +350,26 @@ each printing a line:
    (d) the dry run's step-peak tracker on real tensors: the first sharded
    train step of Qwen2-0.5B and of RWKV-6 3B (2 x 2,048) under
    ``dryrun.Recorder``, its peak of the step's temporaries within 2% of
-   ``max_memory_allocated`` above the arguments.
-   At one rank every DTensor op runs the local op of the unsharded path,
-   so every comparison is bit for bit.  Each run's launches of the scans,
-   their backwards and ``flash_attention`` equal its unsharded twin's,
-   and are not zero; step ms sharded and unsharded (DTensor's host cost
-   at D = 1).  ``python3 chip_smoke.py --sharded`` runs phases 2 and 24
-   alone.
+   ``max_memory_allocated`` above the arguments;
+   (e) the MoE dispatch on the mesh (``models/moe.py``: the global
+   capacity's counts gathered, the experts' rows exchanged): deepseek-V2-
+   Lite at full width, the dense prefix and 3 MoE layers
+   (``SHARDED_MOE_TRAIN``), 3 train steps of 2 x 2,048 through
+   ``make_train_step(cfg, mesh)`` against the unsharded step (its
+   parameters copied to the host after each step): loss, gnorm, every
+   parameter leaf; llama4-Scout at full width, 2 layers, in its serving
+   layout (``moe_ep_serve``: the experts over data, their F over model),
+   part (b)'s scoring forward with ``flash_attention``, prefill and 8
+   decode steps; each MoE call's chosen experts and kept picks held to
+   its twin's (``moe_probe``); and one MoE dry-run cell
+   (``llama4_scout_17b_a16e``, ``decode_32k``) beside part (c)'s, its
+   records holding the dispatch's count all-gathers and ``all_to_all``s.
+   At one rank every DTensor op runs the local op of the unsharded path
+   and every collective is an identity, so every comparison is bit for
+   bit.  Each run's launches of the scans, their backwards and
+   ``flash_attention`` equal its unsharded twin's, and are not zero; step
+   ms sharded and unsharded (DTensor's host cost at D = 1).  ``python3
+   chip_smoke.py --sharded`` runs phases 2 and 24 alone.
 
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
@@ -3212,8 +3225,8 @@ def moe_probe(torch):
         seen["route"].append((top_e, srt[..., k - 1] - srt[..., k]))
         return top_p, top_e
 
-    def probed_dispatch(top_e, n_experts, C):
-        d = dispatch(top_e, n_experts, C)
+    def probed_dispatch(top_e, n_experts, C, start=None):
+        d = dispatch(top_e, n_experts, C, start)
         kept = torch.empty_like(d["keep"])
         kept.scatter_(-1, d["order"], d["keep"])     # back to (t, k) order
         seen["keep"].append(kept.reshape(top_e.shape))
@@ -6324,6 +6337,13 @@ SHARDED_TRACKER = (("qwen2_0_5b", 2, 2048), ("rwkv6_3b", 2, 2048))
 TRACKER_RTOL = 0.02
 SHARDED_KERNELS = ("flash_attention", "rwkv6_scan", "rwkv6_scan_bwd",
                    "rglru_scan", "rglru_scan_bwd")
+# (e): the MoE dispatch on the mesh.  deepseek-V2-Lite at full width, the
+# dense prefix and 3 MoE layers (arch, batch, seq, layers), trained
+# SHARDED_STEPS steps; llama4-Scout at full width, LLAMA4_LAYERS layers, in
+# the serving layout (moe_ep_serve), served as SHARDED_SERVE; one MoE cell
+# of the dry run beside part (c)'s
+SHARDED_MOE_TRAIN = ("deepseek_v2_lite_16b", 2, 2048, 4)
+SHARDED_MOE_DRYRUN = ("llama4_scout_17b_a16e", "decode_32k")
 
 
 def one_rank_mesh(torch, dev, pods=False):
@@ -6369,12 +6389,13 @@ def _leaves_equal(torch, params, snap):
 
 
 def _train_twin(torch, dev, seed, counters, cfg, batch, seq, steps, mesh,
-                compress, snaps=None):
+                compress, snaps=None, to_host=False):
     """``steps`` train steps of fresh weights on the pipeline's batches:
     unsharded (``mesh=None``; ``compress`` adds the int8 round trip by
     hand) or through ``make_train_step(cfg, mesh)``.  Returns (the
-    record, a device copy of the parameters after each step, or the
-    comparison with ``snaps``)."""
+    record, a copy of the parameters after each step — on the host with
+    ``to_host`` or ``compress``, else on the device — or the comparison
+    with ``snaps``)."""
     from repro_torch.data import make_pipeline
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import steps as st
@@ -6417,7 +6438,7 @@ def _train_twin(torch, dev, seed, counters, cfg, batch, seq, steps, mesh,
         if snaps is None:
             # the int8 round trip holds two more f32 copies of the
             # gradient: its twin's snapshots go to the host
-            host.append(_snapshot(torch, params, host=compress))
+            host.append(_snapshot(torch, params, host=compress or to_host))
         else:
             rec["diff"].append(_leaves_equal(torch, params, snaps[i]))
     _sync(torch, dev)
@@ -6546,19 +6567,46 @@ def sharded_tracker(torch, dev, seed, runs, reduced, out):
     return res
 
 
+def _kept(seen):
+    """The recorded MoE calls' (chosen experts, keep flags), in call
+    order (:func:`moe_probe`)."""
+    return [(e, k) for (e, _), k in zip(seen["route"], seen["keep"])]
+
+
+def _same_routing(torch, name, u, d):
+    """Every MoE call of the sharded run chose the experts and kept the
+    picks of its unsharded twin's call, bit for bit; returns the calls
+    and the dropped share."""
+    check(len(u) == len(d) > 0, f"sharded {name}: {len(d)} MoE calls, "
+                                f"the unsharded twin {len(u)}")
+    for i, ((eu, ku), (ed, kd)) in enumerate(zip(u, d)):
+        check(torch.equal(eu, ed), f"sharded {name}: MoE call {i} chose "
+                                   f"other experts")
+        check(torch.equal(ku, kd), f"sharded {name}: MoE call {i} kept "
+                                   f"another set")
+    n = sum(k.numel() for _, k in u)
+    return len(u), sum(int((~k).sum()) for _, k in u) / n
+
+
 def sharded_serve(torch, dev, seed, counters, reduced, batch, prompt, new,
-                  out):
+                  out, arch=MODEL_ARCH, layers=None, part="b"):
     """Part (b): Qwen2-0.5B, TP layout, ``flash_attention`` in the
-    scoring forward, the prefill and decode steps on the mesh."""
+    scoring forward, the prefill and decode steps on the mesh; part (e)
+    the same of llama4-Scout (``layers`` deep) in its serving layout
+    (``moe_ep_serve``: the experts over data, their F over model), each
+    MoE call's experts and kept picks held to the unsharded twin's."""
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import steps as st
     from repro_torch.models import transformer
     from repro_torch.optim.tree import leaves
 
     mesh = one_rank_mesh(torch, dev)
-    cfg = _model_cfg(MODEL_ARCH, reduced).with_(
+    cfg = _model_cfg(arch, reduced, **({"n_layers": layers} if layers
+                                       else {})).with_(
         attention_impl="pallas", pure_dp=False, remat=False,
         decode_cache_len=prompt + new)
+    layout = ("moe_ep_serve layout" if cfg.moe is not None
+              and cfg.moe_ep_serve else "TP layout")
     rng = np.random.default_rng([seed, 24])
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
                             .astype(np.int32)).to(dev)
@@ -6577,7 +6625,7 @@ def sharded_serve(torch, dev, seed, counters, reduced, batch, prompt, new,
         r = {"ms": {}}
         for f in counters.values():
             f.launches = 0
-        with torch.no_grad():
+        with torch.no_grad(), moe_probe(torch) as seen:
             _sync(torch, dev)
             t0 = time.perf_counter()
             logits, _ = transformer.model_apply(
@@ -6607,6 +6655,7 @@ def sharded_serve(torch, dev, seed, counters, reduced, batch, prompt, new,
             r["ms"]["decode"] = float(np.median(ms))
             r["tokens"] = torch.stack(toks_out, 1)
             r["cache"] = [t.cpu() for t in leaves(sh.gather_tree(cache))]
+        r["kept"] = _kept(seen)
         r["launches"] = {k: f.launches for k, f in counters.items()}
         runs[label] = r
         del params, cache
@@ -6614,21 +6663,76 @@ def sharded_serve(torch, dev, seed, counters, reduced, batch, prompt, new,
             torch.cuda.empty_cache()
     u, d = runs["unsharded"], runs["sharded"]
     for what in ("forward", "prefill", "tokens"):
-        check(torch.equal(u[what], d[what]), f"sharded serve: the {what} "
-              f"differs from the unsharded steps'")
+        check(torch.equal(u[what], d[what]), f"sharded serve {arch}: the "
+              f"{what} differs from the unsharded steps'")
     check(all(torch.equal(a, b) for a, b in zip(u["cache"], d["cache"])),
-          "sharded serve: a cache tensor differs from the unsharded one")
-    _same_launches(dev, "serve", u, d, ("flash_attention",))
-    out(f"sharded serve: {MODEL_ARCH} (TP layout, attention_impl pallas): "
-        f"scoring forward {batch} x {prompt}, prefill, {new} decode steps "
-        f"on a mesh of one rank == unsharded bit for bit (logits, tokens, "
-        f"{len(d['cache'])} cache tensors); ms sharded vs unsharded: "
+          f"sharded serve {arch}: a cache tensor differs from the unsharded "
+          f"one")
+    routing = ""
+    if cfg.moe is not None:
+        n, dropped = _same_routing(torch, f"serve {arch}", u["kept"],
+                                   d["kept"])
+        routing = (f", the experts and kept picks of {n} MoE calls "
+                   f"(dropped share {dropped:.4f})")
+    _same_launches(dev, f"serve {arch}", u, d, ("flash_attention",))
+    out(f"sharded serve ({part}): {arch} ({cfg.n_layers} layers, {layout}, "
+        f"attention_impl pallas): scoring forward {batch} x {prompt}, "
+        f"prefill, {new} decode steps on a mesh of one rank == unsharded "
+        f"bit for bit (logits, tokens, {len(d['cache'])} cache "
+        f"tensors{routing}); ms sharded vs unsharded: "
         + ", ".join(f"{k} {d['ms'][k]:.3f} vs {u['ms'][k]:.3f}"
                     for k in ("forward", "prefill", "decode"))
         + f"; launches {_nonzero(d['launches']) or 'none'} (unsharded "
         f"{_nonzero(u['launches']) or 'none'})")
     return {"ms": {"sharded": d["ms"], "unsharded": u["ms"]},
             "launches": d["launches"]}
+
+
+def sharded_moe_train(torch, dev, seed, counters, run, steps, reduced, out):
+    """Part (e), training: deepseek-V2-Lite at full width and ``run``'s
+    depth, ``steps`` steps through ``make_train_step(cfg, mesh)`` on the
+    one-rank mesh against ``make_train_step(cfg)`` on the same weights
+    and batches (the unsharded parameters copied to the host after each
+    step): loss, gnorm, every parameter leaf, and each MoE call's experts
+    and kept picks (the forward's and remat's recompute's), bit for bit."""
+    arch, batch, seq, layers = run
+    t0 = time.perf_counter()
+    mesh = one_rank_mesh(torch, dev)
+    cfg = _model_cfg(arch, reduced, n_layers=layers)
+    with moe_probe(torch) as su:
+        u, snaps = _train_twin(torch, dev, seed, counters, cfg, batch, seq,
+                               steps, None, False, to_host=True)
+    with moe_probe(torch) as sd:
+        d, _ = _train_twin(torch, dev, seed, counters, cfg, batch, seq,
+                           steps, mesh, False, snaps)
+    del snaps
+    check(d["metrics"] == u["metrics"], f"sharded {arch}: loss/gnorm "
+          f"{d['metrics']} vs unsharded {u['metrics']}")
+    check(all(b == 0 for b, _ in d["diff"]), f"sharded {arch}: parameters "
+          f"differ from the unsharded run's: {d['diff']}")
+    n, dropped = _same_routing(torch, arch, _kept(su), _kept(sd))
+    _same_launches(dev, arch, u, d, ())
+    out(f"sharded train (e): {_twins_line(arch, u, d)}; mesh "
+        f"{tuple(mesh.mesh_dim_names)} of one rank, {batch} x {seq}, "
+        f"{cfg.n_layers} layers (the prefix and {n_moe(cfg)} MoE), "
+        f"the experts and kept picks of {n} MoE calls equal (dropped share "
+        f"{dropped:.4f}); bit-equal ({time.perf_counter() - t0:.1f} s)")
+    return {"unsharded": u, "sharded": d, "moe_calls": n,
+            "dropped": dropped, "seconds": time.perf_counter() - t0}
+
+
+def dispatch_collectives(rec):
+    """The MoE dispatch's collectives in a dry-run record: the (E,) int32
+    expert counts' all-gathers and the kept rows' ``all_to_all``s, each
+    (count, bytes a device)."""
+    out = {"counts": [0, 0], "all-to-all": [0, 0]}
+    for c in rec["collective_ops"]:
+        key = ("counts" if c["kind"] == "all-gather" and c["dtype"] == "s32"
+               else c["kind"] if c["kind"] == "all-to-all" else None)
+        if key:
+            out[key][0] += c["mult"]
+            out[key][1] += c["bytes"] * c["mult"]
+    return out
 
 
 @contextlib.contextmanager
@@ -6682,25 +6786,52 @@ def sharded_dryrun(dev, cell=SHARDED_DRYRUN, out=print):
 
 def sharded_phase(torch, dev, seed, counters, *, runs=SHARDED_TRAIN,
                   steps=SHARDED_STEPS, serve=SHARDED_SERVE,
-                  tracker=SHARDED_TRACKER, dryrun=True, reduced=False,
-                  out=print):
-    """Phase 24 (the module docstring); the launches of parts (a) and (b)
-    are the ``sharded`` path's."""
+                  tracker=SHARDED_TRACKER, moe_train=SHARDED_MOE_TRAIN,
+                  dryrun=True, reduced=False, out=print):
+    """Phase 24 (the module docstring); the launches of parts (a), (b)
+    and (e) are the ``sharded`` path's."""
     t0 = time.perf_counter()
-    with (sharded_dryrun(dev, out=out) if dryrun
-          else contextlib.nullcontext()) as dry:
+    with contextlib.ExitStack() as stack:
+        dry = dry_moe = None
+        if dryrun:
+            dry = stack.enter_context(sharded_dryrun(dev, out=out))
+            dry_moe = stack.enter_context(sharded_dryrun(
+                dev, cell=SHARDED_MOE_DRYRUN, out=out))
         tr = sharded_train(torch, dev, seed, counters, runs, steps, reduced,
                            out)
         tk = sharded_tracker(torch, dev, seed, tracker, reduced, out)
         sv = sharded_serve(torch, dev, seed, counters, reduced, *serve,
                            out=out)
+        t_e = time.perf_counter()
+        mt = sharded_moe_train(torch, dev, seed, counters, moe_train, steps,
+                               reduced, out)
+        ms = sharded_serve(torch, dev, seed, counters, reduced, *serve,
+                           out=out, arch=LLAMA4_ARCH, layers=LLAMA4_LAYERS,
+                           part="e")
+        moe_seconds = time.perf_counter() - t_e
+        parts = (tr["launches"], sv["launches"], mt["sharded"]["launches"],
+                 ms["launches"])
         rec = {"train": tr["models"], "serve": sv, "tracker": tk,
-               "launches": {k: tr["launches"].get(k, 0)
-                            + sv["launches"].get(k, 0) for k in counters}}
+               "moe_train": mt, "moe_serve": ms,
+               "launches": {k: sum(p.get(k, 0) for p in parts)
+                            for k in counters}}
         if dry:
             rec["dryrun"] = dry()
+            rec["dryrun_moe"] = dry_moe()
+            got = dispatch_collectives(rec["dryrun_moe"])
+            check(got["counts"][0] > 0 and got["all-to-all"][0] > 0,
+                  f"dry run {SHARDED_MOE_DRYRUN}: the dispatch's collectives"
+                  f" are missing: {got}")
+            out(f"sharded dry run (e): the dispatch's collectives in "
+                f"{SHARDED_MOE_DRYRUN[0]} {SHARDED_MOE_DRYRUN[1]}: expert "
+                f"counts' all-gathers {got['counts'][0]} "
+                f"({got['counts'][1]} bytes), all_to_alls "
+                f"{got['all-to-all'][0]} ({got['all-to-all'][1]} bytes) a "
+                f"device")
+        rec["moe_seconds"] = moe_seconds
     rec["seconds"] = time.perf_counter() - t0
-    out(f"sharded: {rec['seconds']:.1f} s, launches "
+    out(f"sharded: {rec['seconds']:.1f} s (part (e) "
+        f"{rec['moe_seconds']:.1f} s), launches "
         f"{_nonzero(rec['launches'])}")
     return rec
 

@@ -34,9 +34,10 @@ difference to the full depth: FLOPs and collectives are linear in the
 number of periods.  Such a record says ``"scaled": true``; its argument
 bytes always cover the full depth (they are the full model's shards).
 
-A cell the port does not run sharded (the MoE dispatch, ROADMAP A19b)
-fails with its ``NotImplementedError``; a failing cell is recorded as
-``fail`` and the run ends with exit code 1, as the reference's does.
+The MoE archs run their dispatch on the mesh (``models/moe.py``): its
+expert counts' all-gather, its ``all_to_all``s and its partial sums are
+recorded with the rest.  A failing cell is recorded as ``fail`` and the
+run ends with exit code 1, as the reference's does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2_0_5b --shape train_4k

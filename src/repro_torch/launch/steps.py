@@ -30,8 +30,7 @@ from .mesh import mesh_axes
 
 def _shd(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
     """The step's ``ShardCtx``; a ``mesh`` that is not a ``DeviceMesh``
-    raises ``TypeError``, a config with MoE layers
-    ``NotImplementedError`` (ROADMAP A19b)."""
+    raises ``TypeError``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from .sharding import shard_ctx
@@ -40,10 +39,6 @@ def _shd(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
         return None
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh)}")
-    if any(ls.ffn == "moe" for ls in cfg.period):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE dispatch does not run on a mesh yet "
-            f"(ROADMAP A19b)")
     return shard_ctx(cfg, mesh)
 
 

@@ -38,7 +38,7 @@ from ..kernels import _sharded
 from ..kernels.flash_attention import flash_attention
 from .config import ArchConfig, LayerSpec
 from .layers import (FSDP, TENSOR, dense, dense_init, dense_specs, rope, softcap,
-                     split_heads, write_into)
+                     merge_heads, split_heads, write_into)
 
 NEG_INF = -1e30
 IMPLS = ("xla_chunked", "naive", "pallas")
@@ -345,7 +345,7 @@ def attn_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    return dense(p["o"], o.reshape(B, S, H * hd))
+    return dense(p["o"], merge_heads(shd, o))
 
 
 def attn_cache_init(cfg: ArchConfig, lspec: LayerSpec, batch: int,

@@ -225,6 +225,14 @@ def split_heads(shd, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:2], n_heads, x.shape[2] // n_heads)
 
 
+def merge_heads(shd, x: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,hd) -> (B,S,H·hd), through the model's ``ShardCtx`` where
+    there is one (its ``merge_heads``)."""
+    if shd is not None:
+        return shd.merge_heads(x)
+    return x.reshape(*x.shape[:2], -1)
+
+
 def write_into(dst: torch.Tensor, src: torch.Tensor, dim: Optional[int] = None,
                start: int = 0) -> None:
     """In place: ``dst.narrow(dim, start, n).copy_(src)``, ``n`` src's

@@ -29,8 +29,8 @@ from ..kernels import _sharded
 from .attention import NEG_INF, blockwise_attention
 from .config import ArchConfig, LayerSpec
 from .layers import (FSDP, TENSOR, dense, dense_init, dense_specs, rmsnorm,
-                     rmsnorm_init, rmsnorm_specs, rope, split_heads,
-                     write_into)
+                     merge_heads, rmsnorm_init, rmsnorm_specs, rope,
+                     split_heads, write_into)
 
 
 def mla_init(gen: torch.Generator, cfg: ArchConfig, lspec: LayerSpec, *,
@@ -134,7 +134,11 @@ def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
             wuv = p["uv"]["w"].reshape(m.kv_lora_rank, H, dv)
             o = torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype), wuv)
         else:
-            k, v = _expand_kv(p, cfg, cc, ckr_c, shd)
+            # the latent cache whole a row before it is expanded (its
+            # sequence may be sharded, which the expansion's flattened
+            # product cannot take)
+            whole = shd.batch_only if shd is not None else (lambda t: t)
+            k, v = _expand_kv(p, cfg, whole(cc), whole(ckr_c), shd)
             qq = torch.cat([q_nope, q_rope], dim=-1)
             kw = dict(mask=mask, scale=scale, dtype=x.dtype)
             o = (_sharded.attention_call(_decode_core, qq, k, v, **kw)
@@ -142,7 +146,7 @@ def mla_apply(p, cfg: ArchConfig, lspec: LayerSpec, x: torch.Tensor, *,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    return dense(p["o"], o.reshape(B, S, H * dv).to(x.dtype))
+    return dense(p["o"], merge_heads(shd, o.to(x.dtype)))
 
 
 def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,

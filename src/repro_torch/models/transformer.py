@@ -152,6 +152,39 @@ class ShardCtx:
                               self._head_axis(n_heads)))
         return x.reshape(B, S, n_heads, F // n_heads)
 
+    def merge_heads(self, x):
+        """(B,S,H,hd) -> (B,S,H·hd), the inverse of :meth:`split_heads`.
+        Where the heads are whole on every rank (H does not divide over
+        the tensor axis) the flat tensor's gradient, which the output
+        projection shards over H·hd, is laid out as the forward's before
+        it reaches the view: a DTensor view cannot cut that dim into
+        heads either."""
+        from torch.distributed.tensor import DTensor
+
+        B, S, H, hd = x.shape
+        y = x.reshape(B, S, H * hd)
+        if (self.mesh is not None and self.tensor is not None
+                and isinstance(y, DTensor) and self._head_axis(H) is None):
+            y = y.redistribute(self.mesh, y.placements)
+        return y
+
+    def batch_only(self, x):
+        """x (B, ...) with its batch on the dp axes and every other dim
+        whole: a cache that each rank reads whole for its own rows (the
+        reference's cache specs may shard its sequence instead)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        s = (self._dp_fit(x.shape[0]),) + (None,) * (x.dim() - 1)
+        want = spec_placements(Spec(s), self.mesh)
+        # the rows' slice first (no traffic), then the rest gathered on it
+        first = [w if w == Shard(0) and isinstance(p, Replicate) else p
+                 for p, w in zip(x.placements, want)]
+        if first != list(x.placements):
+            x = x.redistribute(self.mesh, first)
+        return self._pin(x, s)
+
     def logits(self, x):
         if self.mesh is None:
             return x

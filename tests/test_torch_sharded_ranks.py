@@ -337,7 +337,9 @@ def _cases(world, payload):
 # ---------------------------------------------------------------------------
 # The spawned jobs
 # ---------------------------------------------------------------------------
-def _rank_main(rank, world, store, payload, q):
+def _rank_main(rank, world, store, payload, q, cases=None):
+    """One rank: every case of ``cases(world, payload)`` (this module's
+    ``_cases`` by default) in order; its results go to ``q``."""
     import logging
     import warnings
 
@@ -351,7 +353,7 @@ def _rank_main(rank, world, store, payload, q):
         dist.init_process_group(
             "gloo", store=dist.FileStore(store, world), rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=GLOO_S))
-        for name, run in _cases(world, payload):
+        for name, run in (cases or _cases)(world, payload):
             try:
                 val = run()
                 # the gathered leaves are equal on every rank: rank 0 sends
@@ -369,12 +371,13 @@ def _rank_main(rank, world, store, payload, q):
 
 
 class _Job:
-    def __init__(self, world, tmp, payload):
+    def __init__(self, world, tmp, payload, cases=None):
         ctx = torch.multiprocessing.get_context("spawn")
         self.world, self.q = world, ctx.Queue()
         store = os.path.join(tmp, f"store{world}")
         self.procs = [ctx.Process(target=_rank_main,
-                                  args=(r, world, store, payload, self.q),
+                                  args=(r, world, store, payload, self.q,
+                                        cases),
                                   daemon=True) for r in range(world)]
         self.t0 = time.monotonic()
         self.deadline = self.t0 + JOB_S
