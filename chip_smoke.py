@@ -371,6 +371,30 @@ each printing a line:
    ms sharded and unsharded (DTensor's host cost at D = 1).  ``python3
    chip_smoke.py --sharded`` runs phases 2 and 24 alone.
 
+25. ``examples`` — the port's three examples (``examples/torch_*.py``),
+   loaded by path and run through their ``main`` as a user runs them:
+   (a) ``torch_quickstart --rounds 8``: the threaded PQ demo's extracted
+   and remaining keys equal its initial and inserted ones as multisets;
+   the graph demo's 800 connectivity answers each equal a host union-find
+   over its 500 edges; the fused rounds' answers and the heap they leave
+   bit-equal to the same rounds on a ``device="cpu"`` queue, and their
+   dispatch one captured CUDA graph replayed once; ``heap_kmin``,
+   ``heap_sift`` and ``heap_insert`` launched; (b) ``torch_pq_server`` at
+   its defaults (8 sessions x 3 requests, 8 tokens, max batch 8, the
+   reduced Qwen2-0.5B decode model): under ``serial``, ``pc`` and
+   ``pc-async`` every request reaches the decode model in exactly one
+   batch, the combining rows make at most ``serial``'s dispatches (the
+   elimination pre-pass orders every request on the host at these sizes,
+   so the deadline PQ launches nothing here); req/s, dispatches and mean
+   batch a row; (c) ``torch_train_lm`` at the demo's full width and its
+   8 x 256 batch, checkpoints in a temporary directory under ``build/``:
+   20 steps, then the same command with ``--steps 30``, which resumes at
+   step 20 and ends within RESTART_RTOL of a straight 30-step run's loss
+   (as (d) of phase 23), the loss falling, no hand-written kernel
+   launched (the dense training path); step ms, tokens/s,
+   ``max_memory_allocated`` and the parameter count.  ``python3
+   chip_smoke.py --examples`` runs phases 2 and 25 alone.
+
 Then one JSON line with every kernel's numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises (non-zero
 exit); without a CUDA device, or without the repository's ``src/``, the
@@ -6836,6 +6860,275 @@ def sharded_phase(torch, dev, seed, counters, *, runs=SHARDED_TRAIN,
     return rec
 
 
+EXAMPLE_ROUNDS = 8             # torch_quickstart --rounds
+EXAMPLE_TRAIN_STEPS = (20, 30)  # torch_train_lm: a run, then resumed to
+EXAMPLE_TRAIN_SHAPE = None     # (batch, seq); None: the example's 8 x 256
+
+
+def load_example(name):
+    """``examples/<name>.py`` loaded by its path (``examples/`` is no
+    package), as a user runs it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: (result, lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fn(*args)
+    return got, buf.getvalue().splitlines()
+
+
+def components(n, edges):
+    """Host oracle: each vertex's union-find root over ``edges``."""
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for u, v in edges:
+        ru, rv = find(u), find(v)
+        if ru != rv:
+            parent[ru] = rv
+    return [find(x) for x in range(n)]
+
+
+def example_quickstart(torch, dev, counters, rounds):
+    """(a) ``torch_quickstart.main`` on ``dev``: the PQ demo conserves the
+    multiset (extracted + remaining == initial + inserted, as sorted
+    lists), each of the 800 connectivity answers equals a host union-find
+    over the demo's edges, and the fused rounds' answers and heap are
+    bit-equal to the same rounds on a ``device="cpu"`` queue; on the card
+    the heap kernels launched and the rounds' dispatch was one captured
+    graph, replayed once."""
+    from repro_torch.core.sharded_pq import ShardedBatchedPQ, to_numpy
+
+    qs = load_example("torch_quickstart")
+    t0 = time.perf_counter()
+    (got, lines), launches = counted(
+        torch, dev, "examples quickstart", counters, HEAP,
+        lambda: _quiet(qs.main, ["--device", dev.type, "--rounds",
+                                 str(rounds)]))
+    seconds = time.perf_counter() - t0
+    p = got["pq"]
+    check(sorted(p["extracted"] + p["remaining"])
+          == sorted(p["initial"] + p["inserted"]),
+          "examples quickstart: the PQ demo lost or made a key")
+    g = got["graph"]
+    root = components(g["n"], g["edges"])
+    want = [root[u] == root[v] for u, v in g["queries"]]
+    wrong = sum(a != w for a, w in zip(g["answers"], want))
+    check(len(g["answers"]) == 800 and wrong == 0,
+          f"examples quickstart: {wrong} connectivity answers differ from "
+          "the host union-find")
+    r = got["rounds"]
+    host = ShardedBatchedPQ(4096, c_max=16, n_shards=4, values=r["values"],
+                            device="cpu")
+    host_ans = host.apply_rounds(r["rounds"])
+    ha, hs = to_numpy(host.state)
+    check(len(host_ans) == rounds and all(
+        np.array_equal(np.asarray(a, np.float32).view(np.uint32),
+                       np.asarray(b, np.float32).view(np.uint32))
+        for a, b in zip(r["answers"], host_ans)),
+        "examples quickstart: the rounds' answers differ from the host's")
+    check(np.array_equal(r["heap"].view(np.uint32), ha.view(np.uint32))
+          and np.array_equal(r["sizes"], hs),
+          "examples quickstart: the heap after the rounds differs from the "
+          "host's")
+    if dev.type == "cuda":
+        check(r["graph_captures"] == 1 and r["graph_replays"] == 1,
+              f"examples quickstart: the rounds' dispatch made "
+              f"{r['graph_captures']} captures and {r['graph_replays']} "
+              "replays, not one each")
+    return dict(launches=launches, seconds=seconds, lines=lines,
+                extracted=len(p["extracted"]),
+                remaining=len(p["remaining"]), pq_passes=p["passes"],
+                connected=sum(g["answers"]), graph_passes=g["passes"],
+                captures=r["graph_captures"], replays=r["graph_replays"])
+
+
+def example_pq_server(torch, dev, counters):
+    """(b) ``torch_pq_server.main`` at the example's defaults on ``dev``:
+    under each scheduler every request reaches the decode model in
+    exactly one batch of at most ``--max-batch`` (an executor a
+    scheduler, in the order ``SCHEDULERS`` runs them), and the combining
+    rows make at most ``serial``'s device dispatches.  No kernel is
+    expected: at these sizes the elimination pre-pass (DESIGN.md §14)
+    orders every request on the host (the deadline PQ stays empty and a
+    pass may choose ``rounds_cap`` x ``max_batch`` = 32 requests, more
+    than the 24 in flight), so the deadline PQ makes no dispatch; phase
+    14 drives it."""
+    from repro_torch.launch import serve
+
+    ps = load_example("torch_pq_server")
+    made, served = [], []
+    init, call = serve.DecodeExecutor.__init__, serve.DecodeExecutor.__call__
+
+    def tagged(self, *a, **kw):
+        init(self, *a, **kw)
+        self._example_row = len(made)
+        made.append(self)
+        served.append([])
+
+    def spy(self, reqs):
+        served[self._example_row].append([id(r) for r in reqs])
+        return call(self, reqs)
+
+    serve.DecodeExecutor.__init__, serve.DecodeExecutor.__call__ = \
+        tagged, spy
+    t0 = time.perf_counter()
+    try:
+        (rows, lines), launches = counted(
+            torch, dev, "examples pq_server", counters, (),
+            lambda: _quiet(ps.main, ["--device", dev.type]))
+    finally:
+        serve.DecodeExecutor.__init__, serve.DecodeExecutor.__call__ = \
+            init, call
+    seconds = time.perf_counter() - t0
+    n = 8 * 3                   # the defaults: --sessions 8, --requests 3
+    check(len(made) == len(ps.SCHEDULERS),
+          f"examples pq_server: {len(made)} executors for "
+          f"{len(ps.SCHEDULERS)} rows")
+    for sched, batches in zip(ps.SCHEDULERS, served):
+        ids = [i for b in batches for i in b]
+        check(len(ids) == len(set(ids)) == n == rows[sched]["requests"],
+              f"examples pq_server {sched}: {len(set(ids))} requests served "
+              f"of {n} ({len(ids)} services)")
+        check(all(len(b) <= 8 for b in batches),
+              f"examples pq_server {sched}: a batch past --max-batch")
+    for sched in ("pc", "pc-async"):
+        check(rows[sched]["device_steps"] <= rows["serial"]["device_steps"],
+              f"examples pq_server: {sched} made "
+              f"{rows[sched]['device_steps']} dispatches, serial "
+              f"{rows['serial']['device_steps']}")
+    return dict(launches=launches, seconds=seconds, lines=lines, rows=rows)
+
+
+def example_train_lm(torch, dev, counters, steps, shape):
+    """(c) ``torch_train_lm.main`` on ``dev`` at the demo's full width,
+    checkpoints in a temporary directory under ``build/``: ``steps[0]``
+    steps, then the same command with ``--steps steps[1]``, which must
+    resume at ``steps[0]``; its final loss within RESTART_RTOL of a
+    straight ``steps[1]``-step run's (exact on the CPU), and the loss
+    falling.  Training runs the dense path: no hand-written kernel."""
+    from repro_torch.checkpoint import latest_step
+
+    tl = load_example("torch_train_lm")
+    size = [] if shape is None else ["--batch", str(shape[0]), "--seq",
+                                     str(shape[1])]
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+
+    def runs():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_",
+                                         dir=base) as tmp:
+            a, b = str(Path(tmp) / "a"), str(Path(tmp) / "b")
+
+            def demo(n, d):
+                return _quiet(tl.main, ["--steps", str(n), "--ckpt-dir", d,
+                                        "--device", dev.type] + size)
+
+            first, _ = demo(steps[0], a)
+            at = latest_step(a)
+            resumed, lines = demo(steps[1], a)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            straight, s_lines = demo(steps[1], b)
+            peak = (torch.cuda.max_memory_allocated()
+                    if dev.type == "cuda" else None)
+        return first, at, resumed, lines, straight, s_lines, peak
+
+    (first, at, resumed, lines, straight, s_lines, peak), launches = counted(
+        torch, dev, "examples train_lm", counters, (), runs)
+    seconds = time.perf_counter() - t0
+    check(at == steps[0] and f"[train] resumed from step {steps[0]}" in lines
+          and len(resumed["losses"]) == steps[1] - steps[0],
+          f"examples train_lm: the second run did not resume at step "
+          f"{steps[0]} (checkpoint {at}, {len(resumed['losses'])} steps run)")
+    diff = abs(resumed["final_loss"] - straight["final_loss"])
+    limit = RESTART_RTOL * abs(straight["final_loss"]) \
+        if dev.type == "cuda" else 0.0
+    check(diff <= limit, f"examples train_lm: resumed final loss "
+          f"{resumed['final_loss']} vs straight {straight['final_loss']} "
+          f"(limit {limit})")
+    check(math.isfinite(straight["final_loss"])
+          and straight["loss_drop"] > 0
+          and resumed["final_loss"] < first["first_loss"],
+          f"examples train_lm: the loss did not fall "
+          f"({straight['first_loss']} -> {straight['final_loss']})")
+    check(all(n == 0 for n in launches.values()),
+          f"examples train_lm: the dense training path launched "
+          f"{_nonzero(launches)}")
+    return dict(launches=launches, seconds=seconds, params=tl.param_count(),
+                count_line=s_lines[0], steps=steps,
+                batch=shape[0] if shape else 8, seq=shape[1] if shape else 256,
+                first=first["first_loss"], resumed=resumed["final_loss"],
+                straight=straight["final_loss"], diff=diff, limit=limit,
+                step_ms=straight["step_ms"],
+                tokens_per_s=straight["tokens_per_s"],
+                max_memory_allocated=peak)
+
+
+def examples_phase(torch, dev, counters, *, rounds=EXAMPLE_ROUNDS,
+                   train_steps=EXAMPLE_TRAIN_STEPS,
+                   train_shape=EXAMPLE_TRAIN_SHAPE, out=print):
+    """Phase 25 (the module docstring): parts (a)-(c), each with every
+    kernel's count set to 0 just before and read just after; the
+    ``examples`` path's launches are their sum.  The examples draw from
+    their own fixed seeds, as the reference's do."""
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    qs = example_quickstart(torch, dev, counters, rounds)
+    out(f"examples (a) torch_quickstart --rounds {rounds}: PQ demo "
+        f"{qs['extracted']} extracted + {qs['remaining']} remaining == "
+        f"initial + inserted (as multisets), {qs['pq_passes']} passes; "
+        f"800 connectivity answers == host union-find ({qs['connected']} "
+        f"connected, {qs['graph_passes']} passes); rounds bit-equal to a "
+        f"CPU queue's, answers and heap; {qs['captures']} graph capture, "
+        f"{qs['replays']} replay; launches {_nonzero(qs['launches'])} "
+        f"({qs['seconds']:.1f} s)")
+    out("examples (a) printed: " + " | ".join(x.strip()
+                                              for x in qs["lines"]))
+    sv = example_pq_server(torch, dev, counters)
+    out("examples (b) torch_pq_server (defaults: 8 sessions x 3 requests, "
+        "8 tokens, max batch 8, reduced qwen2_0_5b): every request served "
+        "once under each scheduler; " + "; ".join(
+            f"{k} {r['req_per_s']} req/s, {r['device_steps']} device "
+            f"dispatches, mean batch {r['mean_batch']}"
+            for k, r in sv["rows"].items())
+        + f"; launches {_nonzero(sv['launches'])} ({sv['seconds']:.1f} s)")
+    tr = example_train_lm(torch, dev, counters, train_steps, train_shape)
+    out(f"examples (c) torch_train_lm ({tr['count_line']}; batch "
+        f"{tr['batch']} x seq {tr['seq']}, {tr['params']} params): "
+        f"{tr['steps'][0]} steps, resumed to {tr['steps'][1]}: final loss "
+        f"{tr['resumed']:.6f} vs a straight run's {tr['straight']:.6f} "
+        f"(|diff| {tr['diff']:.3e}, limit {tr['limit']:.3e}), loss "
+        f"{tr['first']:.6f} first; the straight run: step "
+        f"{tr['step_ms']:.3f} ms (median), {tr['tokens_per_s']:.1f} "
+        f"tokens/s, max_memory_allocated {tr['max_memory_allocated']} "
+        f"({tr['seconds']:.1f} s)")
+    rec = {"quickstart": qs, "pq_server": sv, "train_lm": tr,
+           "launches": {k: qs["launches"][k] + sv["launches"][k]
+                        + tr["launches"][k] for k in counters},
+           "seconds": time.perf_counter() - t0}
+    out(f"examples: {rec['seconds']:.1f} s, launches "
+        f"{_nonzero(rec['launches'])}")
+    return rec
+
+
 def tree_graph(torch, dev, seed, n):
     """The graph phase's half-populated 10⁶-vertex tree as a stacked
     ``DeviceGraph``, its edge buffer written from numpy and its labels
@@ -6886,8 +7179,10 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         remat_long=0, remat_bit=REMAT_BIT,
         spread_layers=REMAT_SPREAD_LAYERS, sharded_runs=SHARDED_TRAIN,
         sharded_steps=SHARDED_STEPS, sharded_serve=SHARDED_SERVE,
-        sharded_dryrun=True, out=print):
-    """Phases 2–24; returns the kernel records and each path's stats.
+        sharded_dryrun=True, example_rounds=EXAMPLE_ROUNDS,
+        example_train_steps=EXAMPLE_TRAIN_STEPS,
+        example_train_shape=EXAMPLE_TRAIN_SHAPE, out=print):
+    """Phases 2–25; returns the kernel records and each path's stats.
     (``dev_name="cpu"`` with small sizes, ``model_reduced=True`` and
     ``timing=False`` rehearses the control flow on the host, where the
     wrappers run their plain versions.)  The ``attn_remat`` sweep's long
@@ -7157,14 +7452,20 @@ def run(dev_name="cuda", seed=0, n_keys=N_KEYS, threads=THREADS,
         torch, dev, seed, counters, runs=sharded_runs, steps=sharded_steps,
         serve=sharded_serve, dryrun=sharded_dryrun, reduced=model_reduced,
         out=out)
-    out(f"run: phases 2-24 in {time.perf_counter() - t_run:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    results["examples"] = examples_phase(
+        torch, dev, counters, rounds=example_rounds,
+        train_steps=example_train_steps, train_shape=example_train_shape,
+        out=out)
+    out(f"run: phases 2-25 in {time.perf_counter() - t_run:.1f} s")
 
     paths = {"heap_kmin": ("pq-single", "pq-sharded", "megapass", "serve",
-                           "placement"),
+                           "placement", "examples"),
              "heap_sift": ("pq-single", "pq-sharded", "megapass", "serve",
-                           "placement"),
+                           "placement", "examples"),
              "heap_insert": ("pq-single", "pq-sharded", "megapass",
-                             "serve", "placement"),
+                             "serve", "placement", "examples"),
              "label_prop": ("graph", "unionfind", "serve", "placement"),
              "sorted_merge": ("map", "sketch", "serve", "placement"),
              "flash_attention": ("model", "gemma2", "recurrentgemma",
@@ -7407,6 +7708,20 @@ def sharded_only(torch, seed):
     sharded_phase(torch, torch.device("cuda"), seed, counters)
 
 
+def examples_only(torch):
+    """``--examples``: phase 2 and phase 25 alone (the port's three
+    examples on the card)."""
+    from repro_torch.kernels import heap_insert, heap_kmin, heap_sift
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    build_line()
+    counters = {"heap_kmin": heap_kmin.k_smallest_sharded,
+                "heap_sift": heap_sift.sift_wavefront_sharded,
+                "heap_insert": heap_insert.phase4_sharded,
+                "flash_attention": flash_attention}
+    examples_phase(torch, torch.device("cuda"), counters)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7444,6 +7759,9 @@ def main(argv=None) -> int:
     ap.add_argument("--label-prop", action="store_true",
                     help="only the build and the label_prop kernel checks "
                          "and timings (phases 2 and 6)")
+    ap.add_argument("--examples", action="store_true",
+                    help="only the build and the port's three examples "
+                         "(phases 2 and 25)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -7500,6 +7818,9 @@ def main(argv=None) -> int:
         return 0
     if args.sharded:
         sharded_only(torch, args.seed)
+        return 0
+    if args.examples:
+        examples_only(torch)
         return 0
     kernels, _ = run("cuda", seed=args.seed)
     print(json.dumps({"kernels": kernels}))

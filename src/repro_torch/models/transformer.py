@@ -53,6 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.batched_pq import resolve_device
+from ..optim.tree import tree_map
 from . import attention, mla, moe, recurrent
 from .config import ArchConfig, LayerSpec
 from .layers import (FSDP, TENSOR, Spec, act_fn, dense, dense_init,
@@ -465,6 +466,42 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     prefix = (block_cache_init(cfg, cfg.period[0], batch, max_len, dtype,
                                device=dev) if cfg.n_prefix else {})
     return {"stack": stack, "rem": rem, "prefix": prefix}
+
+
+def _cache_spec(tree, dp, tensor):
+    """Specs for a cache tree: batch on ``dp``, heads/features on
+    ``tensor``, by each leaf's rank alone (a 4-D leaf shards its third
+    dim, a 2-D one its second, any other rank the batch only)."""
+    def one(x):
+        if x.ndim == 4:
+            return Spec((dp, None, tensor, None))
+        if x.ndim >= 3:
+            return Spec((dp, None, None))
+        if x.ndim == 2:
+            return Spec((dp, tensor))
+        return Spec((dp,))
+    return tree_map(one, tree)
+
+
+def cache_specs(cfg: ArchConfig, cache, dp, tensor):
+    """The reference's model-level cache specs (``cache_specs`` of its
+    ``transformer.py``) as :class:`Spec` trees over ``cache`` (tensors or
+    shape stand-ins): each block's leaves by :func:`_cache_spec`, a
+    stacked block's led by ``None`` for its layer axis.  The mesh-level
+    plan, which picks the first divisible option a leaf, is
+    ``launch/sharding.py``'s ``cache_specs``."""
+    def per_block(tree, stacked):
+        sp = _cache_spec(tree, dp, tensor)
+        if stacked:
+            sp = map_specs(lambda q: Spec((None,) + tuple(q)), sp)
+        return sp
+
+    return {
+        "stack": tuple(per_block(t, True) for t in cache["stack"]),
+        "rem": tuple(per_block(t, False) for t in cache["rem"]),
+        "prefix": per_block(cache["prefix"], False) if cache["prefix"]
+        else {},
+    }
 
 
 def embed_input(params, cfg: ArchConfig,

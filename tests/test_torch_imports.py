@@ -12,6 +12,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = {n: ROOT / "examples" / f"{n}.py"
+            for n in ("torch_quickstart", "torch_pq_server", "torch_train_lm")}
 MODULES = [
     "repro_torch", "repro_torch.core", "repro_torch.core.batched_pq",
     "repro_torch.core.sharded_pq", "repro_torch.core.pc_pq",
@@ -77,9 +79,49 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def _load_example(name, path):
+    """Code that loads ``path`` by its path as module ``m``."""
+    return (f"s = importlib.util.spec_from_file_location({name!r}, "
+            f"{str(path)!r})\n"
+            "m = importlib.util.module_from_spec(s)\n"
+            "s.loader.exec_module(m)")
+
+
+def test_examples_import_no_jax_and_no_reference():
+    """The port's three examples, loaded by path as a user's script would
+    be, pull in neither JAX nor the reference package."""
+    code = "\n".join(
+        ["import importlib.util, sys"]
+        + [_load_example(n, p) for n, p in EXAMPLES.items()]
+        + ["bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'jaxlib', 'repro'))",
+           "assert 'repro_torch.launch.train' in sys.modules",
+           "print('BAD', bad)", "assert not bad, bad"])
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_examples_refuse_to_run_without_cuda(tmp_path):
+    """Each example's ``main`` with its default device (the card) raises
+    without one, through ``resolve_device``, before it writes anything."""
+    code = "\n".join(
+        ["import importlib.util, pytest"]
+        + [_load_example(n, p) + "\n"
+           f"with pytest.raises(RuntimeError, match='no CUDA device'):\n"
+           f"    m.main({argv!r})"
+           for (n, p), argv in zip(EXAMPLES.items(), (
+               [], ["--sessions", "1", "--requests", "1"],
+               ["--steps", "1", "--ckpt-dir", str(tmp_path / "ck")]))]
+        + ["print('refused')"])
+    r = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0 and "refused" in r.stdout, r.stdout + r.stderr
+    assert not (tmp_path / "ck").exists()
+
+
 def test_sources_have_no_jax_or_reference_imports():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted(EXAMPLES.values()))
     assert len(files) > 15
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits

@@ -11,7 +11,9 @@ tuple it is; every comparison is exact.
 - ``param_specs`` for all ten archs, ``train`` and ``serve``: leaf for
   leaf, in the reference's leaf order;
 - ``cache_specs`` for every runnable prefill and decode cell, on the
-  cell's config as the reference's dry run sets it;
+  cell's config as the reference's dry run sets it; the model-level
+  ``repro_torch.models.cache_specs`` for the reduced cache of all ten
+  archs;
 - ``input_specs`` (shapes and dtypes) and ``batch_specs`` for all 40
   cells;
 - the reference file's own cases: divisibility, kv-8 caches shard their
@@ -154,6 +156,30 @@ def test_cache_specs_equal_the_reference(arch, shape):
     for mesh in MESHES:
         assert _tflat(tsh.cache_specs(tc, _tmesh(mesh), tshapes)) == \
             _jflat(jsh.cache_specs(jc, _jmesh(mesh), jshapes)), mesh
+
+
+@pytest.mark.parametrize("axes", [(("data",), "model"),
+                                  (("pod", "data"), None)])
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_model_cache_specs_equal_the_reference(arch, axes):
+    """``repro_torch.models.cache_specs`` (the model-level specs, by each
+    leaf's rank) against the reference's ``transformer.cache_specs`` over
+    the reduced config's cache, with TP on and off; and ``ShardCtx`` is
+    the package's public name too."""
+    from repro.models import transformer as jt
+    from repro_torch import models as tmodels
+
+    dp, tensor = axes
+    jc, tc = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
+    want = _jflat(jt.cache_specs(jc, jt.init_cache(jc, 2, 16), dp, tensor))
+    cache = tmodels.init_cache(tc, 2, 16, device="cpu")
+    got = _tflat(tmodels.cache_specs(tc, cache, dp, tensor))
+    assert len(got) == len(want) > 0
+    assert got == want
+    # shape stand-ins give the same specs as the tensors
+    assert _tflat(tmodels.cache_specs(tc, tsh.cache_shapes(tc, 2, 16), dp,
+                                      tensor)) == got
+    assert tmodels.ShardCtx is tsh.ShardCtx
 
 
 @pytest.mark.parametrize("arch,shape", _cells())
